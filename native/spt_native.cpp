@@ -1,29 +1,19 @@
-// spt_native: native runtime components for the TPU path tracer.
+// spt_native: native runtime components for the path tracer.
 //
-// The reference leans on native libraries for everything around the kernels:
-// Embree builds its BVHs (EmbreeBackend.cpp:181 rtcCommitScene), stb_image
-// decodes HDRs (Cubemap.cpp:18-46 stbi_loadf).  The TPU build keeps its
-// compute path in XLA/Pallas, but the host runtime work — asset decode and
-// acceleration-structure builds — is genuinely serial CPU work, so it lives
-// here as C++ with ctypes bindings (spt_tpu/io/native.py) and pure-Python
-// fallbacks.
+// The reference leans on native libraries around its kernels: stb_image
+// decodes HDRs (Cubemap.cpp:18-46 stbi_loadf).  The compute path here is
+// XLA, but asset decode is genuinely serial CPU work, so it lives here as
+// C++ with ctypes bindings (spt_tpu/io/native.py) and a pure-Python
+// fallback.
 //
 // Exposed C ABI:
 //   spt_rgbe_decode      Radiance RGBE scanlines -> float RGB (RLE + flat)
-//   spt_morton_codes     triangle-centroid 30-bit Morton codes
-//   spt_cluster_build    full cluster-accel build: morton sort + per-cluster
-//                        AABBs over the sorted order
-//   spt_split_build      median-split cluster build (the default since
-//                        round 4.1): recursive longest-axis object-median
-//                        partition with cluster-aligned cuts + AABBs
 //
 // Build: g++ -O3 -march=native -shared -fPIC spt_native.cpp -o libspt_native.so
 
-#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
-#include <numeric>
 #include <vector>
 
 extern "C" {
@@ -92,230 +82,6 @@ int spt_rgbe_decode(const uint8_t* data, int64_t len, int width, int height,
                 px[2] = (q[2] + 0.5f) * scale;
             }
             bp += static_cast<int64_t>(width) * 4;
-        }
-    }
-    return 0;
-}
-
-// ---------------------------------------------------------------------------
-// Morton codes over triangle-AABB centroids (ops/bvh.py:_morton3 semantics).
-// ---------------------------------------------------------------------------
-static inline uint64_t spread10(uint64_t v) {
-    v = (v | (v << 16)) & 0x030000FFull;
-    v = (v | (v << 8)) & 0x0300F00Full;
-    v = (v | (v << 4)) & 0x030C30C3ull;
-    v = (v | (v << 2)) & 0x09249249ull;
-    return v;
-}
-
-void spt_morton_codes(const float* v0, const float* e1, const float* e2,
-                      int64_t n, uint64_t* codes /* n */) {
-    // scene bounds over non-degenerate centroids
-    float lo[3] = {1e30f, 1e30f, 1e30f};
-    float hi[3] = {-1e30f, -1e30f, -1e30f};
-    std::vector<float> cent(static_cast<size_t>(n) * 3);
-    std::vector<uint8_t> degen(static_cast<size_t>(n));
-    for (int64_t i = 0; i < n; ++i) {
-        const float* a = v0 + i * 3;
-        const float* b1 = e1 + i * 3;
-        const float* b2 = e2 + i * 3;
-        degen[i] = (b1[0] == 0 && b1[1] == 0 && b1[2] == 0 &&
-                    b2[0] == 0 && b2[1] == 0 && b2[2] == 0);
-        for (int k = 0; k < 3; ++k) {
-            const float p0 = a[k];
-            const float p1 = a[k] + b1[k];
-            const float p2 = a[k] + b2[k];
-            const float cl = std::min(p0, std::min(p1, p2));
-            const float ch = std::max(p0, std::max(p1, p2));
-            const float c = 0.5f * (cl + ch);
-            cent[i * 3 + k] = c;
-            if (!degen[i]) {
-                lo[k] = std::min(lo[k], c);
-                hi[k] = std::max(hi[k], c);
-            }
-        }
-    }
-    float ext[3];
-    for (int k = 0; k < 3; ++k)
-        ext[k] = std::max(hi[k] - lo[k], 1e-12f);
-
-    for (int64_t i = 0; i < n; ++i) {
-        if (degen[i]) {
-            codes[i] = 0xFFFFFFFFFFFFull;  // padding sorts last
-            continue;
-        }
-        uint64_t q[3];
-        for (int k = 0; k < 3; ++k) {
-            float norm = (cent[i * 3 + k] - lo[k]) / ext[k];
-            int64_t v = static_cast<int64_t>(norm * 1024.0f);
-            q[k] = static_cast<uint64_t>(std::min<int64_t>(std::max<int64_t>(v, 0), 1023));
-        }
-        codes[i] = (spread10(q[0]) << 2) | (spread10(q[1]) << 1) | spread10(q[2]);
-    }
-}
-
-// ---------------------------------------------------------------------------
-// Full cluster-accel build (ops/bvh.py:build_mesh_accel): stable sort by
-// Morton code, emit the permutation and per-cluster AABBs over the sorted
-// triangles.  n_padded must be a multiple of cluster_size and >= n (the
-// caller pads with degenerate entries; indices >= n map to padding).
-// ---------------------------------------------------------------------------
-int spt_cluster_build(const float* v0, const float* e1, const float* e2,
-                      int64_t n, int cluster_size,
-                      int64_t* order /* n */,
-                      float* cl_lo /* (n/cluster_size)*3 */,
-                      float* cl_hi /* (n/cluster_size)*3 */) {
-    if (n % cluster_size != 0) return -1;
-    std::vector<uint64_t> codes(static_cast<size_t>(n));
-    spt_morton_codes(v0, e1, e2, n, codes.data());
-
-    std::vector<int64_t> idx(static_cast<size_t>(n));
-    std::iota(idx.begin(), idx.end(), 0);
-    std::stable_sort(idx.begin(), idx.end(), [&](int64_t a, int64_t b) {
-        return codes[a] < codes[b];
-    });
-    std::memcpy(order, idx.data(), sizeof(int64_t) * static_cast<size_t>(n));
-
-    const int64_t n_clusters = n / cluster_size;
-    for (int64_t c = 0; c < n_clusters; ++c) {
-        float lo[3] = {1e30f, 1e30f, 1e30f};
-        float hi[3] = {-1e30f, -1e30f, -1e30f};
-        bool any = false;
-        for (int j = 0; j < cluster_size; ++j) {
-            const int64_t t = idx[c * cluster_size + j];
-            const float* a = v0 + t * 3;
-            const float* b1 = e1 + t * 3;
-            const float* b2 = e2 + t * 3;
-            const bool degen = b1[0] == 0 && b1[1] == 0 && b1[2] == 0 &&
-                               b2[0] == 0 && b2[1] == 0 && b2[2] == 0;
-            if (degen) continue;
-            any = true;
-            for (int k = 0; k < 3; ++k) {
-                const float p0 = a[k];
-                const float p1 = a[k] + b1[k];
-                const float p2 = a[k] + b2[k];
-                lo[k] = std::min(lo[k], std::min(p0, std::min(p1, p2)));
-                hi[k] = std::max(hi[k], std::max(p0, std::max(p1, p2)));
-            }
-        }
-        for (int k = 0; k < 3; ++k) {
-            cl_lo[c * 3 + k] = any ? lo[k] : 1e30f;
-            cl_hi[c * 3 + k] = any ? hi[k] : -1e30f;
-        }
-    }
-    return 0;
-}
-
-// ---------------------------------------------------------------------------
-// Median-split cluster build (ops/bvh.py:_split_order): recursive
-// longest-axis object-median partition of the non-degenerate triangles,
-// cut points rounded to cluster_size multiples so every cluster boundary
-// of the final order aligns with a split plane; degenerate (padding)
-// triangles go last.  On thin-feature meshes this produces cluster AABBs
-// with ~2x less total surface area than the raw Morton cut, which
-// directly shrinks the traversal flag unions (docs/DESIGN.md).  Same
-// contract as spt_cluster_build.
-// ---------------------------------------------------------------------------
-int spt_split_build(const float* v0, const float* e1, const float* e2,
-                    int64_t n, int cluster_size,
-                    int64_t* order /* n */,
-                    float* cl_lo /* (n/cluster_size)*3 */,
-                    float* cl_hi /* (n/cluster_size)*3 */) {
-    if (n % cluster_size != 0) return -1;
-    const int64_t cs = cluster_size;
-
-    std::vector<float> cent(static_cast<size_t>(n) * 3);
-    std::vector<int64_t> real;
-    real.reserve(static_cast<size_t>(n));
-    std::vector<int64_t> degen;
-    for (int64_t i = 0; i < n; ++i) {
-        const float* a = v0 + i * 3;
-        const float* b1 = e1 + i * 3;
-        const float* b2 = e2 + i * 3;
-        const bool dg = b1[0] == 0 && b1[1] == 0 && b1[2] == 0 &&
-                        b2[0] == 0 && b2[1] == 0 && b2[2] == 0;
-        for (int k = 0; k < 3; ++k) {
-            const float p0 = a[k];
-            const float p1 = a[k] + b1[k];
-            const float p2 = a[k] + b2[k];
-            cent[i * 3 + k] = 0.5f * (std::min(p0, std::min(p1, p2)) +
-                                      std::max(p0, std::max(p1, p2)));
-        }
-        (dg ? degen : real).push_back(i);
-    }
-
-    // iterative stack of [first, last) ranges over `real`
-    std::vector<std::pair<int64_t, int64_t>> stack;
-    if (!real.empty()) stack.emplace_back(0, static_cast<int64_t>(real.size()));
-    std::vector<std::pair<int64_t, int64_t>> done;  // emitted in order below
-    while (!stack.empty()) {
-        auto [first, last] = stack.back();
-        stack.pop_back();
-        const int64_t m = last - first;
-        if (m <= cs) {
-            done.emplace_back(first, last);
-            continue;
-        }
-        // longest centroid axis
-        float lo[3] = {1e30f, 1e30f, 1e30f};
-        float hi[3] = {-1e30f, -1e30f, -1e30f};
-        for (int64_t j = first; j < last; ++j) {
-            const float* c = cent.data() + real[j] * 3;
-            for (int k = 0; k < 3; ++k) {
-                lo[k] = std::min(lo[k], c[k]);
-                hi[k] = std::max(hi[k], c[k]);
-            }
-        }
-        int ax = 0;
-        for (int k = 1; k < 3; ++k)
-            if (hi[k] - lo[k] > hi[ax] - lo[ax]) ax = k;
-        // cluster-aligned cut nearest the median
-        int64_t cut = ((m + cs) / (2 * cs)) * cs;
-        cut = std::min(std::max(cut, cs), (m - 1) / cs * cs);
-        // stable full sort (not nth_element): keeps the emitted leaf order
-        // identical to the numpy fallback's stable argsort, so the two
-        // builders produce bit-identical accel tables
-        std::stable_sort(
-            real.begin() + first, real.begin() + last,
-            [&](int64_t a, int64_t b) {
-                return cent[a * 3 + ax] < cent[b * 3 + ax];
-            });
-        // LIFO: push right first so the left range is emitted first and
-        // `done` comes out in concatenation order
-        stack.emplace_back(first + cut, last);
-        stack.emplace_back(first, first + cut);
-    }
-
-    int64_t w = 0;
-    for (const auto& r : done)
-        for (int64_t j = r.first; j < r.second; ++j) order[w++] = real[j];
-    for (int64_t i : degen) order[w++] = i;
-
-    const int64_t n_clusters = n / cs;
-    for (int64_t c = 0; c < n_clusters; ++c) {
-        float lo[3] = {1e30f, 1e30f, 1e30f};
-        float hi[3] = {-1e30f, -1e30f, -1e30f};
-        bool any = false;
-        for (int j = 0; j < cs; ++j) {
-            const int64_t t = order[c * cs + j];
-            const float* a = v0 + t * 3;
-            const float* b1 = e1 + t * 3;
-            const float* b2 = e2 + t * 3;
-            const bool dg = b1[0] == 0 && b1[1] == 0 && b1[2] == 0 &&
-                            b2[0] == 0 && b2[1] == 0 && b2[2] == 0;
-            if (dg) continue;
-            any = true;
-            for (int k = 0; k < 3; ++k) {
-                const float p0 = a[k];
-                const float p1 = a[k] + b1[k];
-                const float p2 = a[k] + b2[k];
-                lo[k] = std::min(lo[k], std::min(p0, std::min(p1, p2)));
-                hi[k] = std::max(hi[k], std::max(p0, std::max(p1, p2)));
-            }
-        }
-        for (int k = 0; k < 3; ++k) {
-            cl_lo[c * 3 + k] = any ? lo[k] : 1e30f;
-            cl_hi[c * 3 + k] = any ? hi[k] : -1e30f;
         }
     }
     return 0;

@@ -1,8 +1,8 @@
-"""spt_tpu — a TPU-native progressive Monte-Carlo wavefront path tracer.
+"""spt_tpu — a progressive Monte-Carlo wavefront path tracer in JAX.
 
 A from-scratch re-design of the capabilities of `yangyonggit/simple-path-tracer`
-(C++17 / Embree4 / OptiX 7.7) for TPU hardware: JAX/XLA for the compute path,
-Pallas for the hot kernels, `jax.sharding` + `shard_map` for multi-chip scaling.
+(C++17 / Embree4 / OptiX 7.7): JAX/XLA for the compute path on the GPU,
+`jax.sharding` + `shard_map` for multi-device scaling.
 
 Architecture (vs. the reference):
 
@@ -10,8 +10,8 @@ Architecture (vs. the reference):
   becomes :mod:`spt_tpu.scene` — a host-side description flattened into SoA
   ``jnp`` arrays (:class:`spt_tpu.scene.DeviceScene`).
 - Embree/OptiX BVH traversal (EmbreeBackend.cpp, OptixBackend.cpp) becomes
-  vectorized ray-primitive intersection (:mod:`spt_tpu.ops.intersect`) with a
-  Pallas ray-stream kernel and a BVH for large scenes.
+  vectorized ray-primitive intersection (:mod:`spt_tpu.ops.intersect`):
+  unrolled for small scenes, chunked brute force for meshes.
 - The OptiX wavefront pipeline gen_primary -> [trace -> shade]*depth -> resolve
   (OptixBackend.cpp:1506-1850, device_programs.cu) becomes a single jitted
   multi-stage XLA program with an on-device depth loop — no host syncs per

@@ -25,7 +25,7 @@ FORWARD, BACKWARD, LEFT, RIGHT = 0, 1, 2, 3
 
 
 class CameraRays(NamedTuple):
-    """Device camera basis — the TPU LaunchParams camera block
+    """Device camera basis — the LaunchParams camera block
     (LaunchParams.h:63-67 cam_pos/u/v/w, here kept as pos + basis + extents
     so host and device share one formula instead of the reference's
     probe-derived reconstruction, OptixBackend.cpp:1611-1626)."""

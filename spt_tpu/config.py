@@ -102,61 +102,15 @@ class RenderConfig:
     # (device_programs.cu:648 "fminf(scale, 50.0f)")
     firefly_clamp: float = 50.0
 
-    # Wavefront lane scheduling (see integrators/wavefront.py for the
-    # measured trade-offs on TPU):
-    #   "masked"  — all lanes every bounce, dead lanes masked (the default;
-    #               fastest on TPU, where lanes are free and gathers are not).
-    #   "compact" — cumsum-compacted queues (the GPU-folklore strategy; kept
-    #               as a measured negative result, 9x slower at 1080p).
+    # Wavefront lane scheduling (see integrators/wavefront.py):
+    #   "masked"  — all lanes every bounce, dead lanes masked (the default).
+    #   "compact" — cumsum-compacted queues of live lanes.
     #   "regen"   — per-lane path regeneration [Novák et al. 2010]: a lane
     #               restarts with its pixel's next sample the moment its path
     #               dies, folding the whole spp budget into one depth loop.
+    #   "megakernel" — the recursive per-sample tracer behind the same
+    #               progressive engine (integrators/megakernel.py).
     integrator: str = "masked"
-
-    # Block-swizzle the lane -> pixel mapping so each kernel tile is a
-    # compact image rect instead of a full-width strip: live paths and ray
-    # targets cluster spatially, so compact tiles let the fused kernel's
-    # whole-tile early-out and the mesh tracer's per-subtile cluster culling
-    # actually fire (a 512x384 subtile goes from a 512x2 strip crossing the
-    # whole image to a 128x8 rect).  Pure index arithmetic; the image is
-    # bitwise identical.  On when the lane count tiles.
-    swizzle: bool = True
-
-    # Sort bounce rays by direction octant (+ origin morton) after the
-    # primary bounce on mesh scenes, so the cluster tracer's subtile-level
-    # culling sees coherent lanes and dead lanes pack into whole-dead
-    # subtiles (ops/ray_sort).  Only engages when the scene has a cluster
-    # accel and the lane count supports chunked sorting.
-    ray_sort: bool = True
-
-    # How many early bounces get their own coherence sort (each sort goes
-    # stale after one bounce: fresh diffuse directions decorrelate from the
-    # octant key and dying lanes scatter).  Clamped to max_depth - 1.
-    # Default 3 since round 5: the round-3 tuning picked 2 pre-rounds /
-    # pre-condense, but re-swept on the round-5 kernels a third sort pays
-    # on BOTH mesh scenes (8-frame harness: chair 33.0 -> 30.7 ms,
-    # bigmesh 55.3 -> 52.8; a fourth is flat at 52.7) — by bounce 2 the
-    # condensed array is ~6x narrower, so the sort costs ~nothing while
-    # the bounce-2..3 trace still runs on freshly-coherent tiles.
-    ray_sort_stages: int = 3
-
-    # Condense the sorted mesh frame after the primary bounce: chunked
-    # sorting packs live lanes to the head of EVERY sort chunk (and the
-    # row-dealt chunking balances survivor counts across chunks), so when
-    # every live lane sits within the first `wc` positions of its chunk
-    # (checked at runtime), the chunk heads are gathered into a narrow
-    # array and re-sorted ACROSS chunks — all post-primary bounces then
-    # run on globally octant-sorted, minimally-many tiles.  Falls back to
-    # the full-width path via lax.cond when the bound does not hold.
-    # condense_width = 0 sizes the head automatically (~2x headroom over
-    # the expected per-chunk survivor share, wavefront._condense_plan);
-    # > 0 overrides the per-chunk head width.  A/B at depth 4 on the
-    # chair: 36.4 ms/frame without the condense, 19.0 with.
-    condense: bool = True
-    condense_width: int = 0
-
-    # Compute dtype for shading math. Intersection always runs fp32.
-    dtype: str = "float32"
 
     @property
     def resolution(self) -> Tuple[int, int]:

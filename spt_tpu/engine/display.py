@@ -120,8 +120,7 @@ def run_viewer(renderer, max_fps: float = 30.0) -> None:
             # terminal every frame and re-clears on change; the render
             # resolution itself stays put (changing it means a program
             # rebuild — Renderer.resize is the API for that, and a
-            # mid-flight Mosaic recompile would stall the viewer for
-            # minutes on a mesh scene).
+            # mid-flight recompile would stall the viewer).
             try:
                 new_cols, new_rows = _grid()
             except OSError:

@@ -3,7 +3,7 @@
 Replaces EnvironmentManager/Cubemap (src/EnvironmentManager.cpp,
 src/Cubemap.cpp).  The reference keeps two representations — 6 resampled cube
 faces for the CPU (Cubemap.cpp:271-310) and the raw equirect RGBA for the GPU
-texture (Cubemap.cpp:252-269).  On TPU only the equirect path is needed:
+texture (Cubemap.cpp:252-269).  Only the equirect path is needed here:
 a (H, W, 3) array sampled bilinearly with a gather — this is exactly the GPU
 backend's model (device_programs.cu:374-397), which is also the radiometric
 reference for env lookups.
@@ -43,31 +43,20 @@ class Environment(NamedTuple):
     # Neighborhood-packed copy for ONE-take bilinear: row (y*W + x) holds
     # the 2x2 texel block [c00 | c01 | c10 | c11] a bilinear fetch anchored
     # at (y, x) needs (x+1 wrapped, y+1 clamped — pre-applied at build).
-    # Measured on real TPU (benchmarks/env_packed_ab.py): a raw (N, 12)
-    # take costs ~3.5x an (N, 3) one — XLA's gather cost scales with the
-    # fetched row width past ~4 floats, so one 12-wide address is NOT
-    # cheaper than four 3-wide ones (50.4 vs 51.0 ms micro; 98.3 vs 102.0
-    # Mrays/s on the HDR bench e2e).  Ships default-OFF (SPT_ENV_PACKED=1
-    # opts in); kept because the build/pack path is tested and the trade
-    # may flip on other TPU generations.  4x the map's memory when built.
+    # One 12-wide take replaces four 3-wide ones; whether that is cheaper
+    # on a given card is a measurement.  Off by default (SPT_ENV_PACKED=1
+    # opts in).  4x the map's memory when built.
     packed: Optional[jnp.ndarray] = None   # (H*W, 12) float32
     # 2x-supersampled prefilter for ONE-take "snap" bilinear: texel
     # (Y, X) of the (2H, 2W, 3) table is the exact texel-center bilinear
     # sample of `image` at the half-texel grid point (y = Y/2, x = X/2)
     # (wrap in x, pole-clamp in y — the _derive_taps semantics baked in
     # at build).  A lookup rounds its continuous tap position to the
-    # nearest half texel and fetches ONE (N, 3) row: XLA's per-lane
-    # gather cost scales with the fetched row WIDTH and not the table
-    # size (measured — see `packed` above and docs/DESIGN.md "HDR
-    # environment lookups"), so this costs HALF the four-take bilinear
-    # (measured on real TPU, benchmarks/env_packed_ab.py: 25.4 vs 50.8
-    # ms per 2M-lane eval — 2.0x, not the 4x a pure take-count model
-    # predicts; the interpolation arithmetic the four-take pays is not
-    # free) while agreeing with it exactly AT the grid and within a
-    # quarter-texel interpolation offset between grid points.  4x the
-    # map's memory, HBM-resident.  Ships default-OFF (SPT_ENV_SNAP=1
-    # opts in) because the between-grid error is content-dependent
-    # (~13 % rel-L2 on a noise map) — see _snap_on.
+    # nearest half texel and fetches ONE (N, 3) row instead of four,
+    # agreeing with the four-take bilinear exactly AT the grid and within
+    # a quarter-texel interpolation offset between grid points.  4x the
+    # map's memory.  Off by default (SPT_ENV_SNAP=1 opts in) because the
+    # between-grid error is content-dependent — see _snap_on.
     snap: Optional[jnp.ndarray] = None     # (2H, 2W, 3) float32
 
 
@@ -185,17 +174,12 @@ def make_snap_table(image: np.ndarray) -> np.ndarray:
 def _snap_on(h: int) -> bool:
     """Opt-in only (SPT_ENV_SNAP=1), like `packed`.  The snap table
     displaces each lookup by at most a quarter SOURCE texel, so its
-    error shrinks with the map — measured against the exact four-take
-    bilinear on the synthetic sun-sky (post-clamp relative L2 over
-    uniform directions): 5.9 % at H=64, 1.0 % at 256, 0.25 % at 1024.
-    But the bound is content-dependent, not resolution-bounded: a
-    noise-like map measures ~13 % rel-L2 at the same displacement, so a
-    real HDR probe with small bright sources can exceed the 1 %
-    radiometric budget at any resolution.  The round-4 resolution-gated
-    default (H >= 512) shipped exactly that silent deviation and was
-    reverted: the default render now always uses the exact four-take
-    bilinear (cudaFilterModeLinear parity, device_programs.cu:374-387),
-    and snap is a measured speed/fidelity trade the user opts into."""
+    error shrinks with the map on smooth content, but the bound is
+    content-dependent, not resolution-bounded: a real HDR probe with small
+    bright sources can exceed the 1 % radiometric budget at any
+    resolution.  The default render therefore always uses the exact
+    four-take bilinear (cudaFilterModeLinear parity,
+    device_programs.cu:374-387)."""
     import os
 
     return os.environ.get("SPT_ENV_SNAP", "0") == "1"
@@ -291,8 +275,7 @@ def procedural_sky_v(d: "v3.Vec3") -> "v3.Vec3":
 def _equirect_taps_raw(h: int, w: int, d: "v3.Vec3"):
     """The minimal independent tap state: (x0i wrapped, y0f UNclipped floor,
     fx, fy).  The second taps and the v clips are pure derivations
-    (_derive_taps) — ops/pallas_env's sorted sampler carries exactly this
-    through its coherence sort and re-derives the rest."""
+    (_derive_taps)."""
     theta = jnp.arctan2(d.z, d.x)
     phi = jnp.arccos(jnp.clip(d.y, -1.0, 1.0))
     u = (theta + jnp.pi) / (2.0 * jnp.pi)
@@ -320,9 +303,7 @@ def _derive_taps(h: int, w: int, x0i, y0f, fx, fy):
 
 def _equirect_taps(h: int, w: int, d: "v3.Vec3"):
     """Texel-center bilinear tap setup (device_programs.cu:374-387): wrap
-    in u, per-tap clamp in v.  Shared by the XLA sampler below and the
-    Pallas kernel (ops/pallas_env) so both tap identical texels.
-    Returns (x0i, x1i, y0i, y1i, fx, fy)."""
+    in u, per-tap clamp in v.  Returns (x0i, x1i, y0i, y1i, fx, fy)."""
     x0i, y0f, fx, fy = _equirect_taps_raw(h, w, d)
     return _derive_taps(h, w, x0i, y0f, fx, fy)
 
@@ -379,8 +360,7 @@ def sample_equirect_v(image: jnp.ndarray, d: "v3.Vec3") -> "v3.Vec3":
     h, w = image.shape[0], image.shape[1]
     x0i, x1i, y0i, y1i, fx, fy = _equirect_taps(h, w, d)
 
-    # flat 1-D takes: XLA lowers them ~30 % faster than 2-D [y, x]
-    # indexing on TPU (12.3 vs 17.6 ms per 2M-lane tap, measured)
+    # flat 1-D takes over the (H*W, 3) table
     flat = image.reshape(h * w, 3)
     c00 = jnp.take(flat, y0i * w + x0i, axis=0)
     c01 = jnp.take(flat, y0i * w + x1i, axis=0)
@@ -392,41 +372,11 @@ def sample_equirect_v(image: jnp.ndarray, d: "v3.Vec3") -> "v3.Vec3":
     return v3.Vec3.from_array(out)
 
 
-def environment_color_v(env: Environment, direction: "v3.Vec3",
-                        need=None) -> "v3.Vec3":
-    """getEnvironmentColor (EnvironmentManager.cpp:9-33), Vec3 form.
-
-    `need` (optional (N,) bool): the lanes whose result the caller will
-    actually use (e.g. missed_ever masks).  With a TPU and a tileable HDR
-    map the texel gathers then run as the Pallas tile sampler
-    (ops/pallas_env) — the XLA per-lane gather path measures 70.9 ms for
-    ONE 1080p evaluation against the 1024x2048 bench map, which was the
-    entire HDR bench config's frame time.  Lanes outside `need` return an
-    arbitrary texture term (the caller masks it); the procedural-sky side
-    is full-width either way."""
+def environment_color_v(env: Environment, direction: "v3.Vec3") -> "v3.Vec3":
+    """getEnvironmentColor (EnvironmentManager.cpp:9-33), Vec3 form."""
     d = v3.safe_normalize(direction)
     sky = procedural_sky_v(d)
-    use_pallas = use_sorted = False
-    if d.x.ndim == 1:
-        from spt_tpu.ops.pallas_env import (pallas_env_ok,
-                                            pallas_env_sorted_ok)
-
-        use_sorted = pallas_env_sorted_ok(env.image.shape, d.x.shape[0])
-        use_pallas = not use_sorted and pallas_env_ok(env.image.shape,
-                                                      d.x.shape[0])
-    if use_sorted:
-        from spt_tpu.ops.pallas_env import sample_equirect_pallas_sorted
-
-        if need is None:
-            need = jnp.ones(d.x.shape, bool)
-        tex = sample_equirect_pallas_sorted(env.image, d, need)
-    elif use_pallas:
-        from spt_tpu.ops.pallas_env import sample_equirect_pallas
-
-        if need is None:
-            need = jnp.ones(d.x.shape, bool)
-        tex = sample_equirect_pallas(env.image, d, need)
-    elif env.snap is not None:
+    if env.snap is not None:
         tex = sample_equirect_snap_v(env.image.shape[0],
                                      env.image.shape[1], env.snap, d)
     elif env.packed is not None:

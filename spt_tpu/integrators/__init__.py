@@ -1,7 +1,7 @@
 """Integrators: one canonical transport, two orchestrations.
 
-`transport` holds the per-bounce physics shared by both integrators — the TPU
-analog of the reference's goal of CPU/GPU-shared shading semantics
+`transport` holds the per-bounce physics shared by both integrators — the
+reference's goal of CPU/GPU-shared shading semantics
 (GLRenderer.cpp:120-126 passes one material/light/env source of truth to both
 backends).  `megakernel` loops bounces per pixel batch (the PathTracer.cpp
 model); `wavefront` runs staged gen/trace/shade/resolve over SoA path state

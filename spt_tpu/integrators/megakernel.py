@@ -1,6 +1,6 @@
 """Megakernel integrator: the whole path in one fused XLA program.
 
-The TPU re-expression of the reference's CPU recursive tracer
+A re-expression of the reference's CPU recursive tracer
 (PathTracer.cpp:113-224, iteratively restated in wf_pt_cpu.cpp:94-248): the
 bounce loop is unrolled at trace time over the full pixel batch, so XLA fuses
 trace+shade across bounces into one kernel stream — the "megakernel" the GPU

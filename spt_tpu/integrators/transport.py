@@ -18,9 +18,8 @@ reference planned but never shipped, each a RenderConfig toggle:
   cu:498-543); the CPU's ior-derived transparency weights (SURVEY.md §5
   quirk 7) are not reproduced.
 
-Path state is the SoA the reference's author intended (wf_types.h:4-5) in the
-layout the TPU wants: every 3-vector is a `Vec3` of flat (N,) lane arrays
-(see ops/vec3.py for the measured rationale).
+Path state is the SoA the reference's author intended (wf_types.h:4-5):
+every 3-vector is a `Vec3` of flat (N,) lane arrays (see ops/vec3.py).
 """
 
 from __future__ import annotations
@@ -73,7 +72,6 @@ def gen_primary(
     sample_index: int = 0,
     row0=0,
     rows: int = None,
-    pixel=None,
 ) -> PathState:
     """Stage 1 — primary ray generation (__raygen__gen_primary,
     device_programs.cu:239-274).
@@ -84,17 +82,13 @@ def gen_primary(
 
     `row0`/`rows` select a horizontal band of the image (for pixel-axis
     sharding): lanes carry GLOBAL pixel indices, so RNG streams and ray
-    directions are bitwise identical however the image is banded.  `pixel`
-    overrides the lane -> pixel mapping entirely (block swizzling for
-    tile-coherent wavefronts); RNG is seeded by PIXEL, so any lane order
-    renders the identical image.
+    directions are bitwise identical however the image is banded.
     """
     w, h = cfg.width, cfg.height
     if rows is None:
         rows = h
     n = w * rows
-    if pixel is None:
-        pixel = jnp.asarray(row0, jnp.uint32) * jnp.uint32(w) + jnp.arange(n, dtype=jnp.uint32)
+    pixel = jnp.asarray(row0, jnp.uint32) * jnp.uint32(w) + jnp.arange(n, dtype=jnp.uint32)
     px = (pixel % jnp.uint32(w)).astype(jnp.float32)
     py = (pixel // jnp.uint32(w)).astype(jnp.float32)
 
@@ -128,10 +122,8 @@ def gen_primary(
 
 def trace_bounce(scene: DeviceScene, ps: PathState) -> isect.HitV:
     """Stage 2 — trace (__raygen__trace, cu:279-310).  Dead lanes trace with
-    tmax = 0: every box/primitive test fails immediately, so a subtile of
-    dead lanes culls to nothing in the mesh tracer (the trace-side analog of
-    the fused kernel's whole-tile early-out).  Their results were always
-    masked in shade; this just stops paying for them."""
+    tmax = 0, so every primitive test fails for them; their results are
+    masked in shade either way."""
     tmax = jnp.where(ps.alive, jnp.float32(1e30), jnp.float32(0.0))
     return isect.intersect_v(scene, ps.origin, ps.direction, tmin=0.0,
                              tmax=tmax)
@@ -150,12 +142,11 @@ def shade(
     """Stage 3 — shade (__raygen__shade, cu:315-690), fully masked.
 
     Thin wrapper: shade_core does everything lane-local; the environment
-    lookup (the one true gather, for HDR maps) is applied here so the fused
-    Pallas bounce kernel can run shade_core gather-free and leave env
-    resolution to XLA.
+    lookup (the one true gather, for HDR maps) is applied here, so the
+    wavefront can defer it to one evaluation after its depth loop.
     """
     new_ps, missed = shade_core(cfg, scene, lights, ps, hit, bounce, is_last)
-    env_c = environment_color_v(env, ps.direction, need=missed)
+    env_c = environment_color_v(env, ps.direction)
     radiance = new_ps.radiance + v3.where(
         missed, ps.throughput * env_c, Vec3.full((0, 0, 0), (ps.num_paths,))
     )
@@ -185,9 +176,9 @@ def _bilinear_setup(uvx, uvy, res: int):
 def sample_texture_v(textures, tex_id, uvx, uvy):
     """Bilinear texture sample, XLA layout-flat gather.
 
-    `textures` is the packed kernel tiling (n_tex, tiles, 2, 8, 128) int32
-    of res^2 images, res the scene's VMEM-budgeted resolution recovered
-    from the static shape (materials.tex_res_of): plane 0 the
+    `textures` is the packed table (n_tex, tiles, 2, 8, 128) int32 of res^2
+    images, res the scene's budgeted resolution recovered from the static
+    shape (materials.tex_res_of): plane 0 the
     sqrt-encoded 10/10/10 baseColor, plane 1 the 16/16
     (roughness, metallic) multipliers.  Texel (ty, tx) lives at flat index
     ty * res + tx = (q << 10) | (r << 7) | c; V maps directly to image
@@ -202,8 +193,7 @@ def sample_texture_v(textures, tex_id, uvx, uvy):
     (x0, x1, y0, y1), (wx, wy) = _bilinear_setup(uvx, uvy, res)
     tid = jnp.maximum(tex_id, 0)
     n_tex = textures.shape[0]
-    # fully-flat 1-D takes: ~30 % faster than 2-D [tid, flat] gathers on
-    # TPU (the equirect measurement, docs/DESIGN.md)
+    # fully-flat 1-D takes over each plane
     tex_sz = res * res
     col_flat = textures[:, :, 0].reshape(n_tex * tex_sz)
     mr_flat = textures[:, :, 1].reshape(n_tex * tex_sz)
@@ -230,9 +220,6 @@ def shade_core(
     hit: isect.HitV,
     bounce,
     is_last,
-    gather_materials=gather_v,
-    occluded_fn=isect.occluded_v,
-    texture_fn=None,
 ):
     """Everything in shade except the environment color: emission, direct
     lighting with shadow rays, and the scatter branches.  Returns
@@ -240,9 +227,9 @@ def shade_core(
     to every missed lane (those lanes keep their direction and die here).
 
     Every branch of the reference's divergent kernel is computed for every
-    lane and selected — TPU lanes are SIMD, so masked math replaces the
-    SBT/queue divergence machinery at zero extra cost for the small material
-    set (SURVEY.md §7 design stance).
+    lane and selected: masked math replaces the SBT/queue divergence
+    machinery, at the cost of evaluating each branch of the small material
+    set for every lane (SURVEY.md §7 design stance).
     """
     shape = ps.rng.shape
     is_last = jnp.asarray(is_last, bool)
@@ -253,13 +240,12 @@ def shade_core(
     radiance = ps.radiance
 
     # --- surface setup --------------------------------------------------------
-    mat = gather_materials(scene.materials, hit.mat_id)
+    mat = gather_v(scene.materials, hit.mat_id)
     if scene.textures is not None and hit.uvx is not None:
         # Mask miss lanes out of the lookup (their gathered material is
         # arbitrary): a tex_id of -1 samples nothing and returns all-1
-        # multipliers, and the kernel sampler's whole-tile skip can then
-        # fire on sky/dead tiles.
-        tex_rgb, tex_rough, tex_metal = (texture_fn or sample_texture_v)(
+        # multipliers.
+        tex_rgb, tex_rough, tex_metal = sample_texture_v(
             scene.textures, jnp.where(hit.hit_mask, mat.tex_id, -1),
             hit.uvx, hit.uvy
         )
@@ -298,9 +284,8 @@ def shade_core(
         if cfg.shadow_rays:
             shadow_o = isect.safe_origin_v(p, n, jnp.ones(shape, bool))
             # tmax = 0 for lanes that can't contribute: their occlusion
-            # result is ignored, and zeroing the range lets the mesh tracer
-            # cull whole subtiles of them (see trace_bounce).
-            blocked = occluded_fn(
+            # result is ignored (see trace_bounce).
+            blocked = isect.occluded_v(
                 scene, shadow_o, ldir, tmin=cfg.hit_eps,
                 tmax=jnp.where(contrib_mask, ldist - cfg.hit_eps, 0.0),
             )
@@ -320,8 +305,8 @@ def shade_core(
         rng, xe = rng_ops.next_float(rng)
         rng, xu1 = rng_ops.next_float(rng)
         rng, xu2 = rng_ops.next_float(rng)
-        # uniform emitter pick.  Small tables unroll as masked selects (lane
-        # gathers are slow on TPU); past NEE_SELECT_UNROLL the unroll would
+        # uniform emitter pick.  Small tables unroll as masked selects; past
+        # NEE_SELECT_UNROLL the unroll would
         # bloat the XLA program linearly in emitter count (a glTF scene can
         # carry hundreds of emissive triangles), so large tables gather.
         pick = jnp.clip((xe * e_count).astype(jnp.int32), 0, e_count - 1)
@@ -369,7 +354,8 @@ def shade_core(
         if cfg.shadow_rays:
             so = isect.safe_origin_v(p, n, jnp.ones(shape, bool))
             tmax_e = jnp.where(nee_mask, dist * (1.0 - 1e-3), 0.0)
-            blocked = occluded_fn(scene, so, wi, tmin=cfg.hit_eps, tmax=tmax_e)
+            blocked = isect.occluded_v(scene, so, wi, tmin=cfg.hit_eps,
+                                       tmax=tmax_e)
             nee_mask = nee_mask & ~blocked
         brdf_nl = sampling.evaluate_brdf_v(
             n, view, wi, mat.base_color, mat.metallic, mat.roughness, mat.ior
@@ -481,8 +467,7 @@ def shade_core(
 
     if nee_on:
         # dielectric continuations keep counting emission; NEE'd scatters
-        # (diffuse/metal) must not double count it on the next hit.  Logical
-        # ops, not jnp.where — Mosaic cannot lower bool selects (i8->i1).
+        # (diffuse/metal) must not double count it on the next hit.
         new_emission_ok = (scatter_alive & is_dielectric) | (
             ~scatter_alive & ps.emission_ok
         )

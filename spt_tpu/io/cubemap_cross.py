@@ -2,7 +2,7 @@
 
 The reference's Cubemap keeps six faces and samples them per ray on the CPU
 (Cubemap.cpp:94-153), while the GPU consumes only the raw equirect image.
-The TPU build standardizes on one representation — equirect — so cross-layout
+This build standardizes on one representation — equirect — so cross-layout
 files are resampled once at load time.
 
 Face layout and orientation follow loadCrossLayout (Cubemap.cpp:182-250):

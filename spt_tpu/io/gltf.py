@@ -158,12 +158,14 @@ def _load_image(g: _Gltf, base_dir: str, image_index: int,
     float32 LINEAR color.  baseColor images are sRGB-encoded per spec
     (srgb=True decodes them); metallicRoughness images are linear data
     (srgb=False returns raw channel values)."""
-    try:
-        import io as _io
+    import io as _io
 
+    try:
         from PIL import Image
-    except ImportError:
-        return None
+    except ImportError as exc:
+        raise ImportError(
+            "this glTF has textures; decoding them needs Pillow "
+            "(pip install pillow)") from exc
     img = g.doc["images"][image_index]
     try:
         if "uri" in img:

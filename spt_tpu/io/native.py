@@ -1,12 +1,11 @@
 """ctypes bindings for the native runtime library (native/spt_native.cpp).
 
-The compute path is XLA/Pallas; host-side runtime work that is genuinely
-serial — Radiance RGBE scanline decode (the stbi_loadf role, Cubemap.cpp:
-18-46) and the Morton-cluster accel build (the rtcCommitScene role,
-EmbreeBackend.cpp:181) — runs in C++ when the shared library is available.
-The library is built on demand with g++ and cached next to the source; every
-entry point has a pure-Python fallback, so the package works without a
-toolchain.
+The compute path is XLA; host-side work that is genuinely serial — Radiance
+RGBE scanline decode (the stbi_loadf role, Cubemap.cpp:18-46) — runs in C++
+when the shared library is available.  The library is built on demand with
+g++ from native/spt_native.cpp and cached next to the source (git ignores
+it); every entry point has a pure-Python fallback, so the package works
+without a toolchain.
 """
 
 from __future__ import annotations
@@ -65,28 +64,8 @@ def load() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
             ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
         ]
-        lib.spt_cluster_build.restype = ctypes.c_int
-        lib.spt_cluster_build.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-        ]
-        if hasattr(lib, "spt_split_build"):
-            lib.spt_split_build.restype = ctypes.c_int
-            lib.spt_split_build.argtypes = lib.spt_cluster_build.argtypes
-        lib.spt_morton_codes.restype = None
-        lib.spt_morton_codes.argtypes = [
-            ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_uint64),
-        ]
         _LIB = lib
         return _LIB
-
-
-def _fptr(a: np.ndarray):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
 
 
 def rgbe_decode(payload: bytes, width: int, height: int) -> Optional[np.ndarray]:
@@ -98,40 +77,10 @@ def rgbe_decode(payload: bytes, width: int, height: int) -> Optional[np.ndarray]
     out = np.empty((height, width, 3), np.float32)
     rc = lib.spt_rgbe_decode(
         buf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.c_int64(buf.size), width, height, _fptr(out),
+        ctypes.c_int64(buf.size), width, height,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
     )
     if rc != 0:
         raise ValueError(f"spt_rgbe_decode failed: {rc}")
     return out
 
-
-def cluster_build(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
-                  cluster_size: int, mode: str = "morton"):
-    """Native cluster build: Morton sort (mode='morton') or median split
-    (mode='median', spt_split_build) + cluster AABBs.  Inputs must already
-    be padded to a cluster_size multiple.  Returns (order (N,) int64,
-    lo (C,3), hi (C,3)) or None to use the numpy fallback."""
-    lib = load()
-    if lib is None:
-        return None
-    fn = lib.spt_cluster_build
-    if mode == "median":
-        if not hasattr(lib, "spt_split_build"):
-            return None
-        fn = lib.spt_split_build
-    n = v0.shape[0]
-    v0 = np.ascontiguousarray(v0, np.float32)
-    e1 = np.ascontiguousarray(e1, np.float32)
-    e2 = np.ascontiguousarray(e2, np.float32)
-    order = np.empty(n, np.int64)
-    c = n // cluster_size
-    lo = np.empty((c, 3), np.float32)
-    hi = np.empty((c, 3), np.float32)
-    rc = fn(
-        _fptr(v0), _fptr(e1), _fptr(e2), ctypes.c_int64(n), cluster_size,
-        order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-        _fptr(lo), _fptr(hi),
-    )
-    if rc != 0:
-        raise ValueError(f"native cluster build ({mode}) failed: {rc}")
-    return order, lo, hi

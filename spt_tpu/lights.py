@@ -6,7 +6,7 @@ Replaces Light/DirectionalLight/PointLight/LightManager (src/Light.cpp):
   Light.cpp:43-46), infinite distance, no attenuation (:48-55).
 - PointLight has constant/linear/quadratic attenuation (:58-79).
 - Occlusion (Light.cpp:16-40) is a shadow trace with the scale-aware epsilon
-  offset and tfar = dist - 1e-4; on TPU that is a masked batched
+  offset and tfar = dist - 1e-4; here that is a masked batched
   `ops.intersect.occluded` call issued by the integrator, so this module only
   computes radiance/direction/distance per (lane, light).
 
@@ -134,7 +134,7 @@ from spt_tpu.ops import vec3 as v3  # noqa: E402
 def sample_light_v(lights: DeviceLights, i: int, p: "v3.Vec3"):
     """Per-lane radiance for static light index `i`, Vec3 form.
     Returns (Li: Vec3, dir_to_light: Vec3, distance, active)."""
-    # Scalar-only reads so this traces inside Pallas kernels over VMEM refs.
+    # Scalar reads of row i: XLA hoists them out of the lane math.
     kind = lights.kind[i]
     vx, vy, vz = lights.vec[i, 0], lights.vec[i, 1], lights.vec[i, 2]
     it = lights.intensity[i]

@@ -8,7 +8,7 @@ MATERIAL_TYPE_DIELECTRIC there, unlike SceneBuilder's untagged glass; the
 manager's list is what both reference backends actually shade with, so it is
 our default too.
 
-On TPU there is no SBT dispatch: `DeviceMaterials` is a (M, ...) SoA table and
+There is no SBT dispatch: `DeviceMaterials` is a (M, ...) SoA table and
 a hit's material is a gather `table[mat_id]` (SURVEY.md §7 design stance).
 """
 
@@ -27,7 +27,7 @@ MATERIAL_TYPE_DIELECTRIC = 1
 
 
 class DeviceMaterials(NamedTuple):
-    """SoA material table (the TPU `DeviceMaterial[]`, LaunchParams.h:34-43 —
+    """SoA material table (the `DeviceMaterial[]` of LaunchParams.h:34-43 —
     plus the emission/transparency fields the GPU left unused, SURVEY.md §5
     quirks 2 and 7, which we wire in)."""
 
@@ -46,27 +46,23 @@ class DeviceMaterials(NamedTuple):
         return self.base_color.shape[0]
 
 
-# Default device texture resolution.  128x128 = 16384 texels = 16 (8, 128)
-# VMEM tiles per plane, the unit the in-kernel sampler's gathers address
-# (ops/pallas_bounce).  The ACTUAL resolution of a scene's packed table is
-# chosen per scene by choose_tex_res (VMEM-budgeted: few textures get
-# 256^2, many get 64^2) and recovered from the table shape by tex_res_of —
-# samplers must use that, never this constant.
+# Default device texture resolution: 128x128 = 16384 texels, stored as 16
+# (8, 128) blocks of 1024 texels per plane.  The ACTUAL resolution of a
+# scene's packed table is chosen per scene by choose_tex_res (byte-budgeted:
+# few textures get 256^2, many get 64^2) and recovered from the table shape
+# by tex_res_of — samplers must use that, never this constant.
 TEX_RES = 128
-# (8, 128) tiles per texture plane at the default resolution
-TEX_TILES = TEX_RES * TEX_RES // 1024
 
-# VMEM the packed table may spend (both int32 planes of every texture).
-# 2 MiB = 4 textures at 256^2, 16 at 128^2, 64 at 64^2 — budgeted so a
-# many-texture glTF keeps the fused kernels (at reduced fidelity) instead
-# of dropping to the staged XLA pipeline, the reference behavior of
-# "textures always work" (GLTFLoader.cpp:219-331) translated to a machine
-# where the sampler's working set must sit in VMEM.
+# Bytes the packed table may spend (both int32 planes of every texture).
+# 2 MiB = 4 textures at 256^2, 16 at 128^2, 64 at 64^2: a many-texture glTF
+# keeps every texture (the reference behavior of "textures always work",
+# GLTFLoader.cpp:219-331) at reduced resolution.  Whether a larger budget
+# pays on a given GPU is a measurement.
 _DEFAULT_TEX_BUDGET = 2 << 20
 
 
 def tex_budget_bytes() -> int:
-    """The packed-table VMEM budget (SPT_TEX_BUDGET overrides, bytes)."""
+    """The packed-table byte budget (SPT_TEX_BUDGET overrides, bytes)."""
     import os
 
     try:
@@ -78,9 +74,8 @@ def tex_budget_bytes() -> int:
 def choose_tex_res(n_tex: int) -> int:
     """Largest square resolution in {256, 128, 64} whose packed table
     (2 int32 planes per texture) fits tex_budget_bytes().  64 is the floor:
-    below it bilinear filtering visibly posterizes; past-the-floor scenes
-    are instead declined by the fused path's byte gate
-    (pallas_bounce.explain_decline)."""
+    below it bilinear filtering visibly posterizes, so past-the-floor scenes
+    go over the budget."""
     budget = tex_budget_bytes()
     for res in (256, 128):
         if n_tex * 2 * res * res * 4 <= budget:
@@ -123,7 +118,7 @@ def _resample_texture(img: np.ndarray, res: int = TEX_RES) -> np.ndarray:
 def _pack_color(rgb: np.ndarray) -> np.ndarray:
     """(.., 3) [0,1] floats -> packed int32, 10 bits/channel, sqrt-encoded
     (decode x^2: gamma-2-ish allocation keeps dark-texel precision).  One
-    packed word = ONE in-kernel gather per tap instead of three."""
+    packed word = ONE gather per tap instead of three."""
     q = np.round(np.sqrt(np.clip(rgb, 0.0, 1.0)) * 1023.0).astype(np.uint32)
     return (q[..., 0] << 20) | (q[..., 1] << 10) | q[..., 2]
 
@@ -147,14 +142,13 @@ def build_texture_table(materials: Sequence["Material"], res: int = None):
     """(tex_id (M,) int32, textures (n_tex, res^2/1024, 2, 8, 128) int32 |
     None).
 
-    `res` defaults to choose_tex_res(n_textured) — the VMEM-budgeted
+    `res` defaults to choose_tex_res(n_textured) — the byte-budgeted
     per-scene resolution; recover it from the table with tex_res_of.
     Plane 0 of each tile pair is the packed baseColor (_pack_color); plane 1
     packs the (roughness, metallic) multipliers from the glTF
     metallicRoughness texture (G = roughness, B = metallic per spec), or the
-    neutral (1, 1) when the material has none.  The XLA sampler
-    (transport.sample_texture_v) and the kernel sampler (ops/pallas_bounce)
-    index the same layout and decode identically."""
+    neutral (1, 1) when the material has none.  The sampler
+    (transport.sample_texture_v) decodes with unpack_color / unpack_mr."""
     tex_id = np.full(max(len(materials), 1), -1, np.int32)
     textured = [
         (i, m) for i, m in enumerate(materials)
@@ -188,7 +182,7 @@ def build_texture_table(materials: Sequence["Material"], res: int = None):
 
 def unpack_color(p):
     """Packed int32 plane -> (r, g, b) float arrays (inverse _pack_color).
-    Works on jnp or np values; bit ops only, so it lowers in Pallas too."""
+    Works on jnp or np values (bit ops only)."""
     r = ((p >> 20) & 1023).astype(jnp.float32) * (1.0 / 1023.0)
     g = ((p >> 10) & 1023).astype(jnp.float32) * (1.0 / 1023.0)
     b = (p & 1023).astype(jnp.float32) * (1.0 / 1023.0)

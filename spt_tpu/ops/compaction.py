@@ -3,7 +3,7 @@
 The reference's wavefront queues are atomicAdd ticket counters into index
 buffers (device_programs.cu:268-273, 538-541, 752-755) with an in/out pointer
 swap per bounce (OptixBackend.cpp:1799-1802) — non-deterministic ordering by
-construction.  The TPU equivalents are scan-based and deterministic
+construction.  The equivalents here are scan-based and deterministic
 (SURVEY.md §2 "queue compaction"): an exclusive cumsum assigns each live lane
 its output slot; a scatter (or gather of the inverse permutation) builds the
 queue.  The whole class of queue races disappears (SURVEY.md §5 race note).
@@ -65,8 +65,8 @@ def scatter_back(tree_compacted, queue: jnp.ndarray, tree_original, mask_count):
 def sort_by_key(key: jnp.ndarray, *arrays):
     """Stable ascending sort of lane arrays by an int key — the shading-
     coherence transform (sort live lanes by material type so masked branch
-    math wastes the fewest lanes; the TPU analog of the GPU folklore of
-    material-sorted wavefronts)."""
+    math wastes the fewest lanes; the material-sorted wavefronts of GPU
+    folklore)."""
     order = jnp.argsort(key, stable=True)
     return (order,) + tuple(a[order] for a in arrays)
 

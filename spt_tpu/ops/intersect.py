@@ -1,18 +1,18 @@
-"""Ray-scene intersection: the TPU replacement for Embree/OptiX traversal.
+"""Ray-scene intersection: the replacement for Embree/OptiX traversal.
 
 The reference delegates to `rtcIntersect1` (PathTracer.cpp:77-99) /
-`optixTrace` (device_programs.cu:279-310) against vendor BVHs.  On TPU,
-traversal is ours, and the dominant cost model is VPU lane occupancy + HBM
-traffic, not tree depth.  Two strategies behind one interface:
+`optixTrace` (device_programs.cu:279-310) against vendor BVHs.  Here the
+traversal is plain XLA, with two strategies behind one interface, chosen
+by primitive count alone (`_use_unrolled`):
 
-- **Unrolled scalar-prim streaming** (small scenes, the default scene's 20
-  real prims): a Python-unrolled loop over primitives where each prim's data
-  is a traced *scalar* read; every ray-prim test is ~30 full-width (N,)
-  VPU ops and the winner is carried with `where` selects.  No (N, C)
-  broadcasting, no gathers, no argmin — measured ~6x faster than the
-  broadcast form at 1080p on v5e.
-- **Chunked broadcast** (large scenes until the BVH backend lands): (N, C)
-  t-matrices with a running min, final gather resolution.
+- **Unrolled scalar-prim streaming** (up to UNROLL_LIMIT primitives; the
+  default scene has 20): a Python-unrolled loop over primitives where each
+  prim's data is a traced *scalar* read; every ray-prim test is ~30
+  full-width (N,) elementwise ops and the winner is carried with `where`
+  selects.  No (N, C) broadcasting, no gathers, no argmin.
+- **Chunked broadcast** (larger scenes, every mesh): (N, C) t-matrices with
+  a running min and a final gather — brute force, every ray against every
+  triangle, until a BVH traversal exists.
 
 Everything is component-SoA (`Vec3`) — see ops/vec3.py for why.
 
@@ -36,8 +36,6 @@ from spt_tpu.ops import math3d as m3
 from spt_tpu.ops.vec3 import Vec3
 from spt_tpu.scene.flatten import DeviceScene
 
-# numpy scalar, not a device array: Pallas kernels trace this module's code
-# and reject captured array constants.
 INF = np.float32(np.inf)
 
 KIND_MISS = 0
@@ -47,13 +45,13 @@ KIND_SPHERE = 2
 # Möller-Trumbore determinant cutoff (parallel-ray rejection).
 _MT_EPS = 1e-9
 
-# Above this many primitives the unrolled program gets too large; fall back
-# to the chunked broadcast path (and, for real meshes, the BVH backend).
+# Above this many primitives the unrolled program gets too large; larger
+# scenes take the chunked broadcast path.
 UNROLL_LIMIT = 192
 
 
 class HitV(NamedTuple):
-    """Component-SoA hit record (the TPU HitRecord, LaunchParams.h:27-32,
+    """Component-SoA hit record (the HitRecord of LaunchParams.h:27-32,
     plus the interpolated TEXCOORD_0 the reference loads but never uses —
     GLTFLoader.cpp:219-331)."""
 
@@ -154,8 +152,8 @@ def _intersect_unrolled(scene, o: Vec3, d: Vec3, tmin, tmax) -> HitV:
         )
         if tri_ns is not None:
             # interpolated shading normal (scalar row reads, hoisted by
-            # XLA); zero rows fall back to geometric — the same per-lane
-            # select the pallas openers apply (make_cluster_opener)
+            # XLA); zero rows fall back to geometric, as in
+            # _intersect_chunked
             rn = tri_ns[i]
             snx = rn[0] + bu * rn[3] + bv * rn[6]
             sny = rn[1] + bu * rn[4] + bv * rn[7]
@@ -214,7 +212,7 @@ def _occluded_unrolled(scene, o: Vec3, d: Vec3, tmin, tmax) -> jnp.ndarray:
     return blocked
 
 
-# --- chunked broadcast path (large scenes, pre-BVH) ---------------------------
+# --- chunked broadcast path (large scenes) -------------------------------------
 
 def _chunk(n: int, target: int) -> int:
     c = min(n, target)
@@ -362,8 +360,7 @@ def _intersect_chunked(scene, o: Vec3, d: Vec3, tmin, tmax, chunk_size=128) -> H
                             0.0)
         if tri_ns is not None:
             # interpolated shading normal; zero rows (mesh without
-            # NORMALs) keep the geometric normal — the pallas openers'
-            # with_ns semantics (pallas_trace.make_cluster_opener)
+            # NORMALs) keep the geometric normal
             rn = tri_ns[ti]
             sn = (rn[:, 0:3] + bu[:, None] * rn[:, 3:6]
                   + bv[:, None] * rn[:, 6:9])
@@ -418,88 +415,17 @@ def _use_unrolled(scene: DeviceScene) -> bool:
     return (scene.num_triangles + scene.num_spheres) <= UNROLL_LIMIT
 
 
-def _scalarize(v):
-    """Python float -> numpy scalar (a weak-typed literal, NOT a device
-    array: Pallas kernels reject captured array constants)."""
-    import numpy as _np
-    if isinstance(v, (int, float)):
-        return _np.float32(v)
-    return v
-
-
-def _pallas_ok(scene: DeviceScene, n_lanes: int) -> bool:
-    """Use the Pallas stream-traversal kernels: TPU backend, an accel built,
-    and a lane count that tiles into (rows, 128)."""
-    if scene.accel is None or n_lanes % 128 != 0:
-        if scene.accel is not None and n_lanes % 128 != 0:
-            _announce_chunked(f"lane count {n_lanes} is not a multiple of 128")
-        return False
-    try:
-        platform = jax.devices()[0].platform
-    except RuntimeError:
-        return False
-    return platform not in ("cpu", "gpu")
-
-
-_chunked_announced: set = set()
-
-
-def _announce_chunked(reason: str) -> None:
-    """One log line when an accel-built scene falls to the brute-force
-    chunked-broadcast path (a 10x+ slowdown a user should hear about)."""
-    if reason not in _chunked_announced:
-        _chunked_announced.add(reason)
-        import logging
-
-        logging.getLogger("spt_tpu").warning(
-            "Pallas stream-traversal declined (%s); tracing via the "
-            "chunked-broadcast XLA fallback", reason
-        )
-
-
-def _trace_module(scene: DeviceScene):
-    """Pick the trace kernel family: instanced two-level traversal
-    (pallas_inst) when the scene carries a TLAS/BLAS pair, else by accel
-    size — VMEM-resident tri table (pallas_trace) up to MAX_RESIDENT_TRIS,
-    HBM-streaming two-level traversal (pallas_stream) beyond.  Scene size
-    then costs HBM traffic (or a shared BLAS), not VMEM, matching the
-    any-size role of rtcCommitScene / optixAccelBuild
-    (EmbreeBackend.cpp:181, OptixBackend.cpp:916-1180)."""
-    from spt_tpu.ops import pallas_inst, pallas_stream, pallas_trace
-
-    if scene.inst is not None:
-        return pallas_inst
-    if scene.accel.tri_v0.shape[0] > pallas_trace.MAX_RESIDENT_TRIS:
-        return pallas_stream
-    return pallas_trace
-
-
-def _trace_accel(scene: DeviceScene):
-    """The accel structure the chosen trace module consumes."""
-    return scene.inst if scene.inst is not None else scene.accel
-
-
 def intersect_v(scene: DeviceScene, o: Vec3, d: Vec3, tmin=1e-4, tmax=INF) -> HitV:
     """Closest-hit trace, Vec3-native (the hot path)."""
-    tmin = _scalarize(tmin)
-    tmax = _scalarize(tmax)
     if _use_unrolled(scene):
         return _intersect_unrolled(scene, o, d, tmin, tmax)
-    if _pallas_ok(scene, o.x.shape[0] if o.x.ndim else 0):
-        return _trace_module(scene).closest_hit(
-            _trace_accel(scene), scene, o, d, tmin, tmax)
     return _intersect_chunked(scene, o, d, tmin, tmax)
 
 
 def occluded_v(scene: DeviceScene, o: Vec3, d: Vec3, tmin=1e-4, tmax=INF) -> jnp.ndarray:
     """Any-hit shadow trace, Vec3-native (rtcOccluded1, Light.cpp:16-40)."""
-    tmin = _scalarize(tmin)
-    tmax = _scalarize(tmax)
     if _use_unrolled(scene):
         return _occluded_unrolled(scene, o, d, tmin, tmax)
-    if _pallas_ok(scene, o.x.shape[0] if o.x.ndim else 0):
-        return _trace_module(scene).any_hit(
-            _trace_accel(scene), scene, o, d, tmin, tmax)
     return _occluded_chunked(scene, o, d, tmin, tmax)
 
 

@@ -3,7 +3,7 @@
 Replaces the reference's scalar float3 helpers (device_programs.cu:55-141,
 wf_math.h:9-33) with lane-parallel jnp ops: every function maps over an
 arbitrary leading batch shape, so the same code shades one ray on CPU in a
-test and two million rays on a TPU chip.
+test and two million rays on a GPU.
 """
 
 from __future__ import annotations
@@ -32,8 +32,7 @@ def safe_sqrt(x: jnp.ndarray) -> jnp.ndarray:
     jax.grad through a render turns 0-cotangent * inf into NaN.  The
     double-where pins the untaken branch's primal at 1.0 so its zero
     cotangent never meets an inf/overflowed derivative (the differentiable
-    megakernel path; the Pallas kernels keep the raw form — nothing
-    differentiates through them and selects cost in the hot loops)."""
+    megakernel path)."""
     pos = x > 0.0
     return jnp.where(pos, jnp.sqrt(jnp.where(pos, x, 1.0)), 0.0)
 

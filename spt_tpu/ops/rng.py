@@ -5,9 +5,8 @@ The reference uses stateless wang_hash chains on both the CPU wavefront
 and frame (`wang_hash((pixel+1) ^ (frame*9781+1))`, device_programs.cu:256;
 `wang_hash(pixel_seed ^ (s*9781+1))`, wf_pt_cpu.cpp:91).
 
-On TPU this is the ideal design: a uint32 state per lane advanced by
-branchless integer ops on the VPU — no cross-lane interaction, fully
-deterministic, and bit-exact between the megakernel and wavefront integrators
+A uint32 state per lane advanced by branchless integer ops — no cross-lane
+interaction, fully deterministic, and bit-exact between the megakernel and wavefront integrators
 (the parity-test foundation, SURVEY.md §4).  We keep the exact wang-hash
 recurrence so radiometric tests can be seeded reproducibly; jax.random
 (threefry) wrappers are provided for consumers who want JAX-native keys.
@@ -54,8 +53,7 @@ def next_float(state: jnp.ndarray):
     Matches rng_next01 (device_programs.cu:122-125): 24 low bits / 2^24.
     """
     state = wang_hash(state)
-    # Route the cast through int32: the masked value fits in 24 bits, and
-    # Mosaic (Pallas TPU) has no direct uint32 -> float32 conversion.
+    # Route the cast through int32: the masked value fits in 24 bits.
     bits = (state & _U32(0x00FFFFFF)).astype(jnp.int32)
     u = bits.astype(jnp.float32) * jnp.float32(1.0 / 16777216.0)
     return state, u

@@ -1,14 +1,12 @@
-"""Component-SoA 3-vectors: the TPU-native vector layout.
+"""Component-SoA 3-vectors: the path state's vector layout.
 
-A `(N, 3)` array puts the 3 components on the minor (lane) dimension, wasting
-125 of 128 VPU lanes on every dot/cross reduction and forcing relayouts.
-`Vec3` stores x/y/z as three independent `(N,)` arrays, so every vector op is
-a handful of full-width elementwise VPU ops — measured 3-6x faster than the
-`(N, 3)` form for the intersection kernel on TPU v5e.
-
-This is the true analog of the reference's planned SoA path state
-(wf_types.h:4-5 "POD path state designed for CUDA port" — but CUDA wants
-AoS float3 per thread while the TPU wants component planes).
+A `(N, 3)` array puts the 3 components on the minor dimension, so every
+dot/cross becomes a strided reduction over a width-3 axis.  `Vec3` stores
+x/y/z as three independent `(N,)` arrays, so every vector op is a handful
+of full-width elementwise ops that XLA fuses freely — the reference's
+planned SoA path state (wf_types.h:4-5 "POD path state designed for CUDA
+port").  Whether it beats an AoS float3 layout on a given GPU is a
+measurement.
 
 `Vec3` is a NamedTuple, hence a pytree: it threads through jit, while_loop,
 shard_map, and compaction gather/scatter without special handling.

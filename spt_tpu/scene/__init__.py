@@ -1,4 +1,4 @@
-"""Backend-agnostic scene description and its TPU flattening.
+"""Backend-agnostic scene description and its device flattening.
 
 `SceneDesc` is the contract: the reference feeds one description to both the
 Embree and OptiX backends (main.cpp:139-170); here one description feeds every
@@ -23,6 +23,7 @@ from spt_tpu.scene.builder import (
     build_cornell_box_scene,
     build_chair_grid_scene,
     build_hdr_glass_scene,
+    build_seeded_mesh_scene,
     build_unique_grid_scene,
 )
 from spt_tpu.scene.flatten import DeviceScene, flatten_scene
@@ -43,6 +44,7 @@ __all__ = [
     "build_cornell_box_scene",
     "build_chair_grid_scene",
     "build_hdr_glass_scene",
+    "build_seeded_mesh_scene",
     "build_unique_grid_scene",
     "DeviceScene",
     "flatten_scene",

@@ -12,6 +12,8 @@
 - :func:`build_cornell_box_scene` — the emissive multi-bounce benchmark scene
   (BASELINE.md config #2); not in the reference, which has no emissive scene
   despite supporting emission.
+- :func:`build_seeded_mesh_scene` — a few thousand smooth-shaded triangles
+  made from a seed: a mesh scene that needs no asset.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from spt_tpu.scene.desc import (
     SceneDesc,
     create_cube_mesh,
     create_ground_plane_mesh,
+    create_sphere_mesh,
     translate,
     scale,
 )
@@ -131,13 +134,48 @@ def build_cornell_box_scene(light_intensity: float = 15.0) -> SceneDesc:
     return scene
 
 
+def build_seeded_mesh_scene(seed: int = 0, stacks: int = 32,
+                            slices: int = 48) -> SceneDesc:
+    """A noise-displaced UV sphere (2 * stacks * slices triangles with
+    smooth vertex normals) on a ground plane, beside a gold sphere.  Made
+    from `seed` alone, and far past the unrolled intersector's primitive
+    limit, so it exercises the chunked mesh route without any asset."""
+    rng = np.random.default_rng(seed)
+    sphere = create_sphere_mesh(stacks, slices, radius=1.0)
+    unit = sphere.normals.astype(np.float64)
+    k = rng.normal(size=(4, 3)) * 2.5
+    phase = rng.uniform(0.0, 2.0 * np.pi, 4)
+    radius = 1.0 + 0.08 * np.sin(unit @ k.T + phase).sum(axis=1)
+    pos = unit * radius[:, None] + np.array([0.0, 1.1, 0.0])
+    # area-weighted vertex normals of the displaced surface
+    idx = sphere.indices.astype(np.int64)
+    face = np.cross(pos[idx[:, 1]] - pos[idx[:, 0]], pos[idx[:, 2]] - pos[idx[:, 0]])
+    nrm = np.zeros_like(pos)
+    for c in range(3):
+        np.add.at(nrm, idx[:, c], face)
+    length = np.linalg.norm(nrm, axis=1, keepdims=True)
+    # pole vertices touch only zero-area triangles: keep their radial normal
+    nrm = np.where(length > 1e-12, nrm / np.maximum(length, 1e-20), unit)
+
+    scene = SceneDesc()
+    ground = scene.add_material(mats.concrete())
+    body = scene.add_material(mats.plastic())
+    gold = scene.add_material(mats.gold())
+    scene.add_instance(scene.add_mesh(create_ground_plane_mesh(20.0, ground)))
+    scene.add_instance(scene.add_mesh(MeshData(
+        positions=pos.astype(np.float32), indices=sphere.indices,
+        normals=nrm.astype(np.float32), material_id=body)))
+    scene.add_sphere([2.2, 0.8, -0.5], 0.8, gold)
+    return scene
+
+
 def build_chair_grid_scene(nx: int = 4, nz: int = 4, path: str = None):
     """An nx x nz grid of rattan chairs (~98k triangles at 4x4) — the
     big-mesh benchmark scene (BASELINE.md config #3 at reference scale; the
     reference treats large glTFs as first-class input,
     GLTFLoader.cpp:202-331, and its backends accept any size,
     EmbreeBackend.cpp:181).  Returns (desc, center, radius) for camera
-    framing.  Shared by bench.py --scene bigmesh and benchmarks/stream_ab.
+    framing.  Used by bench.py --scene bigmesh.
     """
     from spt_tpu.io.gltf import bounding_box, load_gltf
 
@@ -167,11 +205,9 @@ def build_chair_grid_scene(nx: int = 4, nz: int = 4, path: str = None):
 def build_unique_grid_scene(nx: int = 4, nz: int = 4, path: str = None):
     """The chair grid with every copy baked to a UNIQUE mesh (~98k unique
     triangles at 4x4): positions pre-transformed per cell, one instance per
-    mesh.  No shared BLAS exists, so the instanced tier declines and the
-    scene exercises the HBM-streaming tier (ops/pallas_stream) — the tier
-    that inherits the reference's any-mesh promise (EmbreeBackend.cpp:181,
-    one rtcCommitScene whatever the size).  BASELINE stream config; shared
-    by bench.py --scene stream.  Returns (desc, center, radius)."""
+    mesh — the reference's any-mesh promise (EmbreeBackend.cpp:181, one
+    rtcCommitScene whatever the size).  BASELINE stream config; used by
+    bench.py --scene stream.  Returns (desc, center, radius)."""
     from spt_tpu.io.gltf import bounding_box, load_gltf
     from spt_tpu.scene.desc import MeshData, NO_MATERIAL
 

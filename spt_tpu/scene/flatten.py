@@ -1,4 +1,4 @@
-"""SceneDesc -> DeviceScene: the TPU analog of the backend build step.
+"""SceneDesc -> DeviceScene: the analog of the backend build step.
 
 The reference's EmbreeBackend flattens instances by pre-transforming triangle
 geometry into world space (positions by worldFromObject, normals by
@@ -6,12 +6,12 @@ inverse-transpose; EmbreeBackend.cpp:60-79) and registers analytic spheres as
 user geometry (:139-178), maintaining a geomID->materialId map (:129-174).
 
 Here the flattening produces dense SoA arrays with static shapes.  Padding
-is OFF by default — the unrolled/streamed intersectors iterate exact prim
-counts, and each padded prim would be a 100%-wasted full-width test (25% of
-the default scene!).  When padding is requested (pad_multiple > 1, or the
-cluster accel's internal padding), padded triangles are degenerate (zero
-area -> Möller-Trumbore determinant 0, never hit) and padded spheres have
-radius 0 (discriminant < 0 for any ray not through the center).
+is OFF by default — the intersectors iterate exact prim counts, and each
+padded prim would be a 100%-wasted full-width test (25% of the default
+scene!).  When padding is requested (pad_multiple > 1), padded triangles
+are degenerate (zero area -> Möller-Trumbore determinant 0, never hit) and
+padded spheres have radius 0 (discriminant < 0 for any ray not through the
+center).
 Material resolution order matches EmbreeBackend.cpp:51-57: instance override,
 then mesh material, then 0.
 """
@@ -26,10 +26,23 @@ import numpy as np
 from spt_tpu.materials import DeviceMaterials, build_device_materials
 from spt_tpu.scene.desc import NO_MATERIAL, SceneDesc
 
-# Above this many primitives a mesh acceleration structure is built
-# (matches ops.intersect.UNROLL_LIMIT, where the streaming intersector
-# stops unrolling).
-ACCEL_THRESHOLD = 192
+# Shading normals are stored on a 12-bit grid over [-2, 2] (n0 is unit,
+# dn1/dn2 are differences of units): q = 1 + round((v + 2) / NS_STEP), in
+# ~1e-3 steps, <= 0.06 deg of normal error.  Every intersector and the CPU
+# oracle shade with these quantized values, so the images do not depend on
+# which of them ran.
+NS_STEP = np.float32(4.0 / 4094.0)
+
+
+def quantize_ns(ns: np.ndarray) -> np.ndarray:
+    """(T, 9) shading-normal table -> the same table on the 12-bit grid.
+    All-zero rows (the flat/no-NORMAL sentinel) stay all-zero."""
+    ns = np.asarray(ns, np.float32).reshape(-1, 9)
+    q = (np.float32(1.0) + np.round((np.clip(ns, -2.0, 2.0) + np.float32(2.0))
+                                    / NS_STEP)).astype(np.float32)
+    out = (q - np.float32(1.0)) * NS_STEP - np.float32(2.0)
+    out[np.abs(ns).max(axis=1) == 0.0] = 0.0
+    return out
 
 
 class EmitterTable(NamedTuple):
@@ -65,25 +78,16 @@ class DeviceScene(NamedTuple):
     sph_radius: jnp.ndarray   # (S,) float32 (0 for padding)
     sph_mat: jnp.ndarray      # (S,) int32
     materials: DeviceMaterials
-    # Morton-cluster acceleration for large meshes (ops/bvh.py); None for
-    # scenes small enough to stream-unroll.
-    accel: Optional["MeshAccel"] = None
     # Emissive triangles for NEE; None when the scene has no emitters.
     emitters: Optional[EmitterTable] = None
     # Per-triangle texture coordinates [uv0 | uv1-uv0 | uv2-uv0], (T, 6)
     # float32; None when no material carries a texture (the common case —
     # keeps untextured programs free of the extra tables).
     tri_uv: Optional[jnp.ndarray] = None
-    # Scene texture table (n_tex, 4, 8, 128, 3) float32 linear color — the
-    # kernel-addressable tiling of TEX_RES^2 baseColor images
+    # Scene texture table (n_tex, tiles, 2, 8, 128) int32 — packed
+    # baseColor and metallicRoughness images
     # (materials.build_texture_table); None when untextured.
     textures: Optional[jnp.ndarray] = None
-    # Two-level instanced acceleration (ops/bvh.InstAccel) — built when the
-    # flattened scene exceeds the resident tracer but the UNIQUE geometry
-    # fits (the reference's IAS-over-GAS shape, OptixBackend.cpp:916-1180).
-    # The flat world-space arrays above stay authoritative for the XLA
-    # fallback and the CPU oracle; this is the fast path's view.
-    inst: Optional["InstAccel"] = None
     # Per-triangle WORLD-space shading normals [n0 | n1-n0 | n2-n0],
     # (T, 9) float32 — vertex NORMALs transformed by the instance
     # inverse-transpose (EmbreeBackend.cpp:60-79's fidelity, which the
@@ -116,24 +120,18 @@ def _pad_to(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
-def flatten_scene(desc: SceneDesc, pad_multiple: int = 1,
-                  cluster_size: int = 64) -> DeviceScene:
-    """Bake instance transforms and build the padded SoA arrays (plus the
-    cluster accel for large meshes — the rtcCommitScene/optixAccelBuild
-    analog, EmbreeBackend.cpp:181 / OptixBackend.cpp:916-1180)."""
+def flatten_scene(desc: SceneDesc, pad_multiple: int = 1) -> DeviceScene:
+    """Bake instance transforms and build the padded SoA arrays (the
+    rtcCommitScene/optixAccelBuild step, EmbreeBackend.cpp:181 /
+    OptixBackend.cpp:916-1180, minus the BVH)."""
     v0s, v1s, v2s, tri_mats, tri_uvs, tri_nss = [], [], [], [], [], []
     has_ns = False
-    inst_records = []  # (mesh_id, world_from_object, mat_override) per VALID instance
     for inst in desc.instances:
         if inst.mesh_id >= len(desc.meshes):
             continue
         mesh = desc.meshes[inst.mesh_id]
         if not mesh.is_valid():
             continue
-        inst_records.append((
-            inst.mesh_id, inst.world_from_object,
-            int(inst.material_id) if inst.material_id != NO_MATERIAL else -1,
-        ))
         mat_id = _resolve_material(inst, mesh)
         # positions -> world (EmbreeBackend.cpp:63-69)
         xf = inst.world_from_object
@@ -187,8 +185,7 @@ def flatten_scene(desc: SceneDesc, pad_multiple: int = 1,
     if has_ns:
         # SPT_NS=0 drops shading normals entirely (flat shading, the
         # reference backends' behavior) — the quality/speed knob and the
-        # A/B that prices the interpolation: the wider 28-col pack adds
-        # pick() passes at every winner resolution.
+        # A/B that prices the interpolation.
         import os
 
         has_ns = os.environ.get("SPT_NS", "1") != "0"
@@ -207,12 +204,6 @@ def flatten_scene(desc: SceneDesc, pad_multiple: int = 1,
         off_geom = np.abs(tri_ns[:, 0:3] - ngn).max(axis=1) > 1e-3
         has_ns = bool((real & nonzero & (varying | off_geom)).any())
     if has_ns:
-        # Store the 12-bit-quantized values every kernel path shades with
-        # (bvh.encode_ns packs these into tri_pack cols 19-23), so the XLA
-        # trace paths and the CPU oracle agree with the Pallas kernels
-        # bit-for-bit.
-        from spt_tpu.ops.bvh import quantize_ns
-
         tri_ns = quantize_ns(tri_ns)
 
     t_pad = _pad_to(v0.shape[0], pad_multiple)
@@ -263,19 +254,6 @@ def flatten_scene(desc: SceneDesc, pad_multiple: int = 1,
                 area=jnp.asarray(area.astype(np.float32)),
             )
 
-    accel = None
-    if v0.shape[0] > ACCEL_THRESHOLD:
-        import os
-
-        from spt_tpu.ops.bvh import build_mesh_accel
-
-        cluster_size = int(os.environ.get("SPT_CLUSTER_SIZE", cluster_size))
-        accel = build_mesh_accel(v0, v1 - v0, v2 - v0, tri_mat,
-                                 cluster_size=cluster_size, uv=tri_uv,
-                                 ns=tri_ns if has_ns else None)
-    inst_accel = _maybe_build_inst(desc, inst_records, v0.shape[0],
-                                   cluster_size)
-
     from spt_tpu.materials import build_texture_table
 
     _, textures = build_texture_table(desc.materials)
@@ -288,92 +266,9 @@ def flatten_scene(desc: SceneDesc, pad_multiple: int = 1,
         sph_radius=jnp.asarray(radii),
         sph_mat=jnp.asarray(sph_mat),
         materials=build_device_materials(desc.materials),
-        accel=accel,
         emitters=emitters,
         tri_uv=jnp.asarray(tri_uv) if textures is not None else None,
         textures=textures,
-        inst=inst_accel,
         tri_ns=jnp.asarray(tri_ns) if has_ns else None,
     )
 
-
-def _maybe_build_inst(desc: SceneDesc, inst_records, total_tris: int,
-                      cluster_size: int):
-    """Build the TLAS/BLAS instanced accel when it wins: the flattened
-    scene exceeds the resident tracer's budget, but the UNIQUE meshes —
-    each cluster-padded to the largest mesh's padded count — fit it.  A
-    scene of all-distinct meshes declines naturally (its BLAS is as big as
-    the flattened soup).  SPT_INSTANCED=0 forces the streamed flattened
-    path (the A/B for benchmarks)."""
-    import os
-
-    if os.environ.get("SPT_INSTANCED", "1") == "0":
-        return None
-    from spt_tpu.ops.bvh import MAX_RESIDENT_TRIS, build_inst_accel
-
-    if total_tris <= MAX_RESIDENT_TRIS or len(inst_records) < 2:
-        return None
-    mesh_ids = sorted({mid for mid, _, _ in inst_records})
-    local = {mid: i for i, mid in enumerate(mesh_ids)}
-
-    cmax = max(-(-desc.meshes[mid].triangle_count // cluster_size)
-               for mid in mesh_ids)
-    if len(mesh_ids) * cmax * cluster_size > MAX_RESIDENT_TRIS:
-        return None
-
-    meshes = []
-    for mid in mesh_ids:
-        mesh = desc.meshes[mid]
-        pos = mesh.positions
-        idx = mesh.indices.astype(np.int64)
-        mv0 = pos[idx[:, 0]].astype(np.float32)
-        e1 = (pos[idx[:, 1]] - pos[idx[:, 0]]).astype(np.float32)
-        e2 = (pos[idx[:, 2]] - pos[idx[:, 0]]).astype(np.float32)
-        blas_mat = mesh.material_id if mesh.material_id != NO_MATERIAL else 0
-        mat = np.full(idx.shape[0], blas_mat, np.int32)
-        if mesh.texcoords is not None and len(mesh.texcoords) == mesh.vertex_count:
-            tc = mesh.texcoords
-            uv0 = tc[idx[:, 0]]
-            uv = np.concatenate(
-                [uv0, tc[idx[:, 1]] - uv0, tc[idx[:, 2]] - uv0], axis=1
-            ).astype(np.float32)
-        else:
-            uv = None
-        import os as _os
-        if (mesh.normals is not None
-                and len(mesh.normals) == mesh.vertex_count
-                and _os.environ.get("SPT_NS", "1") != "0"):
-            # OBJECT-space shading normals; the traversal's finish hook
-            # applies the per-instance inverse-transpose (no sign(det) —
-            # pallas_inst._make_finish)
-            nrm = mesh.normals.astype(np.float64)
-            nrm = nrm / np.maximum(
-                np.linalg.norm(nrm, axis=1, keepdims=True), 1e-20)
-            nrm = nrm.astype(np.float32)
-            n0 = nrm[idx[:, 0]]
-            ns = np.concatenate(
-                [n0, nrm[idx[:, 1]] - n0, nrm[idx[:, 2]] - n0], axis=1)
-            # same triviality drop as the flat path: a mesh whose vertex
-            # normals are everywhere the winding normal packs flat
-            ng = np.cross(e1, e2)
-            ngl = np.linalg.norm(ng, axis=1, keepdims=True)
-            real = ngl[:, 0] > 1e-20
-            ngn = ng / np.maximum(ngl, 1e-20)
-            varying = np.abs(ns[:, 3:9]).max(axis=1) > 1e-6
-            off = np.abs(ns[:, 0:3] - ngn).max(axis=1) > 1e-3
-            if not (real & (varying | off)).any():
-                ns = None
-        else:
-            ns = None
-        meshes.append((mv0, e1, e2, mat, uv, ns))
-
-    instances = [(local[mid], xf, mat_ov)
-                 for mid, xf, mat_ov in inst_records]
-    try:
-        return build_inst_accel(meshes, instances,
-                                cluster_size=cluster_size)
-    except ValueError:
-        # singular instance transform (only the flattened path renders it)
-        # or an instance count past the visit-key packing: decline to the
-        # streamed flattened tier
-        return None

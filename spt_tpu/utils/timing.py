@@ -3,7 +3,7 @@
 The reference's only observability is FPS + samples every 5 s
 (GLRenderer.cpp:183-187) and frame-0 queue counts (OptixBackend.cpp:
 1690-1695).  This module adds what SURVEY.md §5 prescribes: wall-clock stage
-timing via forced materialization and rays/sec accounting derived from the
+timing that waits for the device, and rays/sec accounting derived from the
 wavefront's per-bounce live counts.
 """
 
@@ -13,13 +13,14 @@ import contextlib
 import time
 from typing import Dict, List
 
+import jax
 import numpy as np
 
 
 class StageTimer:
-    """Accumulating wall-clock timer.  `block_on` forces materialization —
-    under async dispatch (and TPU runtimes whose block_until_ready is
-    unreliable for donated buffers) only a host read proves completion."""
+    """Accumulating wall-clock timer.  Dispatch is asynchronous, so a stage
+    given `block_on` waits for those arrays (jax.block_until_ready) before
+    its clock stops."""
 
     def __init__(self):
         self.totals: Dict[str, float] = {}
@@ -30,7 +31,7 @@ class StageTimer:
         t0 = time.perf_counter()
         yield
         if block_on is not None:
-            np.asarray(block_on).ravel()[:1]
+            jax.block_until_ready(block_on)
         dt = time.perf_counter() - t0
         self.totals[name] = self.totals.get(name, 0.0) + dt
         self.counts[name] = self.counts.get(name, 0) + 1

@@ -156,7 +156,7 @@ def intersect(sc: NpScene, o, d, tmin=0.0, tmax=np.inf):
         ng = np.cross(sc.tri_e1[best_i], sc.tri_e2[best_i]).astype(F32)
         if sc.tri_ns is not None:
             # interpolated shading normal; zero rows keep geometric
-            # (mirrors pallas_trace.make_cluster_opener's with_ns select)
+            # (mirrors the intersectors' per-lane select)
             rn = sc.tri_ns[best_i]
             sn = (rn[0:3] + u[best_i] * rn[3:6]
                   + v[best_i] * rn[6:9]).astype(F32)

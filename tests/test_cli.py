@@ -30,11 +30,11 @@ class TestReferenceFlagParity:
         a = build_parser().parse_args(
             ["--scene", "cornell", "--tonemap", "aces", "--orbit", "3",
              "--debug-mode", "normal", "--checkpoint", "c.npz",
-             "--integrator", "regen", "--swizzle"]
+             "--integrator", "regen"]
         )
         assert a.scene == "cornell" and a.tonemap == "aces"
         assert a.orbit == 3.0 and a.debug_mode == "normal"
-        assert a.integrator == "regen" and a.swizzle is True
+        assert a.integrator == "regen"
 
 
 class TestSkyboxFallback:

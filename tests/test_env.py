@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from spt_tpu import env as env_mod
 
@@ -93,7 +94,7 @@ class TestPackedBilinear:
 
     def test_environment_color_uses_packed(self, monkeypatch):
         """make_hdr_environment builds the packed table only on opt-in
-        (SPT_ENV_PACKED=1; default off — measured slower on real TPU) and
+        (SPT_ENV_PACKED=1; default off) and
         environment_color_v routes through it with identical radiometry."""
         from spt_tpu import env as env_mod
         from spt_tpu.ops.vec3 import Vec3
@@ -117,9 +118,9 @@ class TestPackedBilinear:
 
 class TestSnapBilinear:
     """Half-texel prefilter one-take bilinear (Environment.snap): exact at
-    grid points, bounded between them, and OPT-IN only — the round-4
-    resolution-gated default silently deviated from the exact sampler on
-    production-size maps and was reverted (ADVICE r4)."""
+    grid points, bounded between them, and OPT-IN only — a
+    resolution-gated default would silently deviate from the exact sampler
+    on content with small bright sources."""
 
     def test_default_off_any_size(self, monkeypatch):
         monkeypatch.delenv("SPT_ENV_SNAP", raising=False)
@@ -194,3 +195,52 @@ class TestSnapBilinear:
         wt = np.stack([np.asarray(c) for c in want], -1)
         rel_l2 = np.linalg.norm(g - wt) / np.linalg.norm(wt)
         assert rel_l2 < 0.01, rel_l2
+
+
+def _noise_map(h=16, seed=21):
+    """A map whose every texel differs, so a wrong tap shows."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(0.0, 8.0, (h, 2 * h, 3)).astype(np.float32)
+
+
+def _unit_rows(d):
+    d = np.asarray(d, np.float64)
+    return (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+
+
+# direction sets where the equirect mapping has its edge cases: the u seam
+# (theta = +-pi, on the -x axis), both poles, their neighbourhoods, the
+# axes, and a uniform spread
+_EQUIRECT_DIRS = {
+    "seam": [[-1.0, y, s * z] for y in (-0.5, 0.0, 0.5)
+             for s in (-1.0, 1.0) for z in (0.0, 1e-7, 1e-4, 1e-2)],
+    "north_pole": [[0.0, 1.0, 0.0], [1e-7, 1.0, 0.0], [0.0, 1.0, -1e-7]],
+    "south_pole": [[0.0, -1.0, 0.0], [-1e-7, -1.0, 0.0], [0.0, -1.0, 1e-7]],
+    "near_north": [[np.cos(a) * 0.02, 1.0, np.sin(a) * 0.02]
+                   for a in np.linspace(0, 2 * np.pi, 24)],
+    "near_south": [[np.cos(a) * 0.02, -1.0, np.sin(a) * 0.02]
+                   for a in np.linspace(0, 2 * np.pi, 24)],
+    "axes": [[1, 0, 0], [-1, 0, 0], [0, 0, 1], [0, 0, -1], [1, 1, 1],
+             [-1, -1, -1]],
+    "uniform": np.random.default_rng(8).normal(size=(256, 3)).tolist(),
+}
+
+
+class TestEquirectVsOracle:
+    """The XLA sampler (environment_color_v, the route every render takes)
+    against reference_cpu.equirect_color, direction by direction."""
+
+    @pytest.mark.parametrize("which", sorted(_EQUIRECT_DIRS))
+    @pytest.mark.parametrize("image", ["noise", "sunsky"])
+    def test_matches_oracle(self, which, image):
+        from spt_tpu.ops.vec3 import Vec3
+
+        img = (_noise_map() if image == "noise"
+               else env_mod.synthetic_equirect(16))
+        e = env_mod.make_hdr_environment(img)
+        d = _unit_rows(_EQUIRECT_DIRS[which])
+        got = env_mod.environment_color_v(
+            e, Vec3.from_array(jnp.asarray(d))).to_array()
+        want = np.stack([ref.equirect_color(img, di) for di in d])
+        np.testing.assert_allclose(np.asarray(got), want, rtol=2e-4,
+                                   atol=2e-5)

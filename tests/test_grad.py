@@ -2,8 +2,8 @@
 
 The README advertises the megakernel as "differentiable end-to-end" — an
 inverse-rendering capability the reference (C++/CUDA) cannot offer.  This
-gates the claim (VERDICT r3 weak #3: an advertised capability with zero
-coverage is a claim, not a feature): analytic gradients of an image loss
+gates the claim (an advertised capability with zero coverage is a claim,
+not a feature): analytic gradients of an image loss
 w.r.t. material parameters must exist, be finite, and match central finite
 differences.
 """

@@ -51,8 +51,8 @@ class TestHdr:
 
     def test_bench_hdr_config_uses_real_file(self, tmp_path, monkeypatch):
         # The benched HDR config must exercise the real file pipeline:
-        # write_hdr -> read_hdr -> layout autodetect -> equirect env
-        # (VERDICT r2 missing #3).  Small height here; bench uses 1024.
+        # write_hdr -> read_hdr -> layout autodetect -> equirect env.
+        # Small height here; bench uses 1024.
         import sys
 
         sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))

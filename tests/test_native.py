@@ -1,11 +1,10 @@
-"""Native runtime library (C++ RGBE decode + cluster build) vs Python."""
+"""Native runtime library (C++ RGBE decode) vs Python."""
 
 import numpy as np
 import pytest
 
 from spt_tpu.io import native
 from spt_tpu.io.hdr import read_hdr, write_hdr
-from spt_tpu.ops.bvh import build_mesh_accel
 
 
 needs_native = pytest.mark.skipif(
@@ -61,115 +60,3 @@ class TestRgbeNative:
         img = read_hdr(str(tmp_path / "m.hdr"))
         np.testing.assert_allclose(img[0, :, 0], np.arange(10, 26) + 0.5, rtol=1e-6)
         np.testing.assert_allclose(img[0, :, 1], 0.5, rtol=1e-6)
-
-
-@needs_native
-class TestClusterBuildNative:
-    def test_matches_numpy(self, rng, force_python):
-        v0 = rng.uniform(-5, 5, (777, 3)).astype(np.float32)
-        e1 = (rng.normal(size=(777, 3)) * 0.1).astype(np.float32)
-        e2 = (rng.normal(size=(777, 3)) * 0.1).astype(np.float32)
-        mat = rng.integers(0, 5, 777).astype(np.int32)
-
-        acc_py = build_mesh_accel(v0, e1, e2, mat)
-
-        native._TRIED = False
-        native._LIB = None
-        acc_nat = build_mesh_accel(v0, e1, e2, mat)
-
-        np.testing.assert_allclose(
-            np.asarray(acc_nat.cluster_lo), np.asarray(acc_py.cluster_lo)
-        )
-        np.testing.assert_allclose(
-            np.asarray(acc_nat.cluster_hi), np.asarray(acc_py.cluster_hi)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(acc_nat.tri_v0), np.asarray(acc_py.tri_v0)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(acc_nat.tri_mat), np.asarray(acc_py.tri_mat)
-        )
-
-    def test_cluster_boxes_contain_triangles(self, rng):
-        v0 = rng.uniform(-5, 5, (500, 3)).astype(np.float32)
-        e1 = (rng.normal(size=(500, 3)) * 0.2).astype(np.float32)
-        e2 = (rng.normal(size=(500, 3)) * 0.2).astype(np.float32)
-        acc = build_mesh_accel(v0, e1, e2, np.zeros(500, np.int32), cluster_size=32)
-        k = acc.cluster_size
-        tv0 = np.asarray(acc.tri_v0)
-        te1 = np.asarray(acc.tri_e1)
-        te2 = np.asarray(acc.tri_e2)
-        lo = np.asarray(acc.cluster_lo)
-        hi = np.asarray(acc.cluster_hi)
-        for c in range(acc.num_clusters):
-            sel = slice(c * k, (c + 1) * k)
-            verts = np.concatenate(
-                [tv0[sel], tv0[sel] + te1[sel], tv0[sel] + te2[sel]]
-            )
-            real = np.abs(te1[sel]).sum(1) + np.abs(te2[sel]).sum(1) > 0
-            if not real.any():
-                continue
-            rverts = np.concatenate(
-                [tv0[sel][real], (tv0[sel] + te1[sel])[real],
-                 (tv0[sel] + te2[sel])[real]]
-            )
-            assert (rverts >= lo[c] - 1e-5).all()
-            assert (rverts <= hi[c] + 1e-5).all()
-
-
-class TestMedianSplitBuild:
-    """The round-4.1 default clustering: recursive longest-axis median
-    split with cluster-aligned cuts (ops/bvh._split_order + native
-    spt_split_build).  Tighter cluster AABBs than the Morton cut are the
-    whole point: the per-tile flag union sets the traversal open count
-    (docs/DESIGN.md 'Where the ... frame's time goes')."""
-
-    def _soup(self, rng, n=900):
-        # thin elongated features (rod-like), the Morton cut's worst case
-        base = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
-        base[:, 1] = base[:, 0] * 0.9 + rng.normal(size=n) * 0.05
-        e1 = (rng.normal(size=(n, 3)) * 0.02).astype(np.float32)
-        e2 = (rng.normal(size=(n, 3)) * 0.02).astype(np.float32)
-        return base, e1, e2
-
-    @staticmethod
-    def _total_sa(acc):
-        lo, hi = np.asarray(acc.cluster_lo), np.asarray(acc.cluster_hi)
-        e = np.maximum(hi - lo, 0)
-        sa = 2 * (e[:, 0] * e[:, 1] + e[:, 1] * e[:, 2] + e[:, 2] * e[:, 0])
-        return sa[np.isfinite(sa) & (hi[:, 0] >= lo[:, 0]).astype(bool)].sum()
-
-    def test_native_matches_numpy_bit_exact(self, rng, force_python):
-        v0, e1, e2 = self._soup(rng)
-        mat = rng.integers(0, 5, len(v0)).astype(np.int32)
-        acc_py = build_mesh_accel(v0, e1, e2, mat)
-        native._TRIED = False
-        native._LIB = None
-        if native.load() is None:
-            pytest.skip("native toolchain unavailable")
-        acc_nat = build_mesh_accel(v0, e1, e2, mat)
-        np.testing.assert_array_equal(
-            np.asarray(acc_nat.tri_v0), np.asarray(acc_py.tri_v0))
-        np.testing.assert_allclose(
-            np.asarray(acc_nat.cluster_lo), np.asarray(acc_py.cluster_lo))
-        np.testing.assert_allclose(
-            np.asarray(acc_nat.cluster_hi), np.asarray(acc_py.cluster_hi))
-
-    def test_tighter_than_morton(self, rng, monkeypatch):
-        v0, e1, e2 = self._soup(rng)
-        mat = np.zeros(len(v0), np.int32)
-        acc_med = build_mesh_accel(v0, e1, e2, mat)
-        monkeypatch.setenv("SPT_CLUSTER", "morton")
-        acc_mor = build_mesh_accel(v0, e1, e2, mat)
-        assert self._total_sa(acc_med) < 0.8 * self._total_sa(acc_mor)
-
-    def test_same_triangle_set(self, rng):
-        v0, e1, e2 = self._soup(rng, n=257)   # pad-heavy odd count
-        mat = rng.integers(0, 3, 257).astype(np.int32)
-        acc = build_mesh_accel(v0, e1, e2, mat)
-        got = np.asarray(acc.tri_v0)
-        real = np.abs(np.asarray(acc.tri_e1)).sum(1) > 0
-        assert len(got[real]) == 257
-        order = np.lexsort(got[real].T)
-        expect = np.lexsort(v0.T)
-        np.testing.assert_array_equal(got[real][order], v0[expect])

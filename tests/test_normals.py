@@ -2,38 +2,21 @@
 
 The reference loads per-vertex NORMALs (GLTFLoader.cpp:219-331) and
 transforms them per instance (EmbreeBackend.cpp:60-79) — then both its
-backends shade with the geometric Ng anyway.  Round 5 carries the vertex
-normals all the way: tri_pack cols 19-23 (12-bit packed) / DeviceScene.tri_ns,
-at the winning hit with a per-lane fallback to Ng where a mesh has no
-NORMAL attribute.  These tests pin (a) the interpolation against the
-analytic sphere normal, (b) parity across the XLA chunked, Pallas resident
-and instanced tiers, (c) the mirror-instance transform rule (vertex normals
-take the pure inverse-transpose, no sign(det)), and (d) that flat scenes
-drop the table entirely.
+backends shade with the geometric Ng anyway.  Here the vertex normals are
+carried all the way: DeviceScene.tri_ns (on a 12-bit grid), interpolated at
+the winning hit with a per-lane fallback to Ng where a mesh has no NORMAL
+attribute.  These tests pin (a) the interpolation against the analytic
+sphere normal, (b) parity between the unrolled and chunked intersectors,
+and (c) that flat scenes drop the table entirely.
 """
 
-import jax.experimental.pallas as pl
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from spt_tpu.ops import intersect as isect
 from spt_tpu.ops.vec3 import Vec3
 from spt_tpu.scene import SceneDesc, flatten_scene
 from spt_tpu.scene.desc import Material, create_sphere_mesh
-
-import spt_tpu.ops.pallas_bounce as pb
-
-
-@pytest.fixture(autouse=True)
-def interpret_mode(monkeypatch):
-    orig = pl.pallas_call
-
-    def patched(*a, **kw):
-        kw["interpret"] = True
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(pb.pl, "pallas_call", patched)
 
 
 def _sphere_scene(stacks=16, slices=24):
@@ -66,30 +49,29 @@ def _normals(hit):
 
 class TestNsPacking:
     def test_roundtrip_idempotent_and_bounded(self):
-        """decode(encode(x)) is within half a 12-bit step of clip(x), and a
-        second roundtrip is EXACT (flatten quantizes tri_ns, bvh re-encodes
-        the quantized table — the pack must reproduce it bit-for-bit)."""
-        from spt_tpu.ops.bvh import NS_STEP, decode_ns, encode_ns
+        """quantize(x) is within half a 12-bit step of clip(x), and a second
+        quantize is EXACT (the grid is a fixed point)."""
+        from spt_tpu.scene.flatten import NS_STEP, quantize_ns
 
         rng = np.random.default_rng(0)
         ns = rng.uniform(-2.3, 2.3, (4096, 9)).astype(np.float32)
         ns[:7] = 0.0  # sentinel rows
-        q1 = decode_ns(encode_ns(ns))
+        q1 = quantize_ns(ns)
         err = np.abs(q1 - np.clip(ns, -2.0, 2.0))
         assert err[7:].max() <= 0.5001 * float(NS_STEP)
         assert (q1[:7] == 0.0).all()
-        q2 = decode_ns(encode_ns(q1))
+        q2 = quantize_ns(q1)
         np.testing.assert_array_equal(q1, q2)
 
     def test_grid_values_roundtrip_exact(self):
-        from spt_tpu.ops.bvh import NS_STEP, decode_ns, encode_ns
+        from spt_tpu.scene.flatten import NS_STEP, quantize_ns
 
         q = np.arange(1, 4096, dtype=np.float32)
         v = (q - np.float32(1.0)) * NS_STEP - np.float32(2.0)
         ns = np.zeros((v.shape[0], 9), np.float32)
         ns[:, 0] = v
         ns[:, 4] = v[::-1]
-        out = decode_ns(encode_ns(ns))
+        out = quantize_ns(ns)
         np.testing.assert_array_equal(out[:, 0], ns[:, 0])
         np.testing.assert_array_equal(out[:, 4], ns[:, 4])
 
@@ -135,83 +117,6 @@ class TestSmoothVsAnalytic:
         assert ((na * nb).sum(1) > 0.9999).mean() > 0.99
 
 
-class TestResidentTier:
-    def test_pallas_closest_matches_chunked(self):
-        from spt_tpu.ops import pallas_trace
-
-        dev = _sphere_scene(stacks=16, slices=24)  # 768 tris > threshold
-        assert dev.accel is not None
-        assert int(dev.accel.tri_pack.shape[-1]) == 25
-        ov, dv = _rays_at_sphere(n=512, seed=11)
-        ref = isect._intersect_chunked(dev, ov, dv, np.float32(0.0),
-                                       np.float32(np.inf))
-        pal = pallas_trace.closest_hit(dev.accel, dev, ov, dv, tmin=0.0)
-        t_r, t_p = np.asarray(ref.t), np.asarray(pal.t)
-        agree = ((np.isinf(t_r) & np.isinf(t_p))
-                 | (np.abs(np.nan_to_num(t_r - t_p, nan=1.0)) < 1e-4))
-        assert agree.mean() > 0.99
-        hm = np.isfinite(t_r) & agree
-        nr, npal = _unit(_normals(ref)[hm]), _unit(_normals(pal)[hm])
-        assert ((nr * npal).sum(1) > 0.999).mean() > 0.99
-
-
-class TestInstancedTier:
-    def _scene(self, mirror=False):
-        from tests.test_inst import _build_instanced  # noqa: F401
-        sc = SceneDesc()
-        sc.add_material(Material(base_color=[0.8, 0.2, 0.2]))
-        mid = sc.add_mesh(create_sphere_mesh(12, 16, radius=1.0,
-                                             material_id=0))
-        xf2 = np.eye(4, dtype=np.float32)
-        xf2[:3, 3] = (2.5, 0.0, 0.0)
-        if mirror:
-            xf2[0, 0] = -1.0
-        sc.add_instance(mid)
-        sc.add_instance(mid, xf2)
-        dev = flatten_scene(sc)
-        if dev.inst is None:
-            import spt_tpu.ops.bvh as bvh
-            from spt_tpu.scene.desc import NO_MATERIAL
-            from spt_tpu.scene.flatten import _maybe_build_inst
-
-            orig = bvh.MAX_RESIDENT_TRIS
-            try:
-                bvh.MAX_RESIDENT_TRIS = dev.num_triangles - 1
-                recs = [(i.mesh_id, i.world_from_object,
-                         int(i.material_id)
-                         if i.material_id != NO_MATERIAL else -1)
-                        for i in sc.instances]
-                ia = _maybe_build_inst(sc, recs, dev.num_triangles, 64)
-            finally:
-                bvh.MAX_RESIDENT_TRIS = orig
-            dev = dev._replace(inst=ia)
-        return dev
-
-    @pytest.mark.parametrize("mirror", [False, True])
-    def test_instanced_smooth_matches_chunked(self, mirror):
-        """The instanced finish hook applies the pure inverse-transpose to
-        vertex normals (no sign(det)) — the flattened chunked reference
-        bakes the same rule at flatten time, so a MIRRORED instance is the
-        discriminating case."""
-        import spt_tpu.ops.pallas_inst as pinst
-
-        dev = self._scene(mirror=mirror)
-        assert dev.inst is not None
-        assert int(dev.inst.tri_pack.shape[-1]) == 25
-        ov, dv = _rays_at_sphere(n=512, seed=13)
-        ref = isect._intersect_chunked(dev, ov, dv, np.float32(0.0),
-                                       np.float32(np.inf))
-        pal = pinst.closest_hit(dev.inst, dev, ov, dv, tmin=0.0)
-        t_r, t_p = np.asarray(ref.t), np.asarray(pal.t)
-        agree = ((np.isinf(t_r) & np.isinf(t_p))
-                 | (np.abs(np.nan_to_num(t_r - t_p, nan=1.0)) < 1e-3))
-        assert agree.mean() > 0.99
-        hm = np.isfinite(t_r) & agree
-        assert hm.sum() > 100
-        nr, npal = _unit(_normals(ref)[hm]), _unit(_normals(pal)[hm])
-        assert ((nr * npal).sum(1) > 0.999).mean() > 0.99
-
-
 class TestFlatScenesPayNothing:
     def test_default_scene_has_no_ns_table(self):
         from spt_tpu.scene import build_default_scene
@@ -222,8 +127,8 @@ class TestFlatScenesPayNothing:
 
     def test_spt_ns_0_forces_flat(self, monkeypatch):
         # SPT_NS=0: the quality/speed knob drops shading normals at
-        # flatten time — narrow 24-col pack, no tri_ns, flat shading
-        # (the reference backends' behavior).
+        # flatten time — no tri_ns, flat shading (the reference backends'
+        # behavior).
         from spt_tpu.scene.desc import create_sphere_mesh
 
         sc = SceneDesc()
@@ -235,8 +140,6 @@ class TestFlatScenesPayNothing:
         monkeypatch.setenv("SPT_NS", "0")
         flat = flatten_scene(sc)
         assert flat.tri_ns is None
-        if flat.accel is not None:
-            assert int(flat.accel.tri_pack.shape[-1]) == 24
 
     def test_soup_mesh_has_no_ns_table(self):
         rng = np.random.default_rng(5)
@@ -250,8 +153,6 @@ class TestFlatScenesPayNothing:
             indices=rng.integers(0, nv, (80, 3)).astype(np.uint32))))
         dev = flatten_scene(sc)
         assert dev.tri_ns is None
-        if dev.accel is not None:
-            assert int(dev.accel.tri_pack.shape[-1]) == 24
 
 
 class TestOracleParity:

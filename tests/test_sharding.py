@@ -1,4 +1,4 @@
-"""Multi-chip scaling on the 8-device CPU-simulated mesh (SURVEY.md §4)."""
+"""Multi-device scaling on the 8-device CPU-simulated mesh (SURVEY.md §4)."""
 
 import jax
 import jax.numpy as jnp
@@ -105,10 +105,9 @@ class TestShardedRenderer:
         np.testing.assert_allclose(img, r1.image(), rtol=1e-3, atol=2e-3)
 
     def test_accel_scene_sharded_matches_single(self):
-        # a mesh (accel) scene on a device mesh: the cluster tables
-        # replicate with the rest of the scene and the sharded render is
-        # radiometrically the single-chip one (the reference's multi-mesh
-        # CPU path never had a multi-device analog to compare against)
+        # a mesh scene past the unrolled limit (chunked route) on a device
+        # mesh: the triangle tables replicate with the rest of the scene
+        # and the sharded render is radiometrically the single-device one
         from spt_tpu.camera import Camera
         from spt_tpu.engine.renderer import Renderer
         from spt_tpu.scene import SceneDesc
@@ -127,7 +126,9 @@ class TestShardedRenderer:
                      fov_degrees=50.0, aspect_ratio=1.0)
         r8 = Renderer(sc, cfg, camera=cam)
         assert r8.mesh is not None
-        assert r8.scene.accel is not None
+        from spt_tpu.ops.intersect import UNROLL_LIMIT
+
+        assert r8.scene.num_triangles > UNROLL_LIMIT
         r8.render_frame(check_camera=False)
         r1 = Renderer(sc, cfg, camera=cam, multi_device=False)
         r1.render_frame(check_camera=False)
@@ -146,7 +147,7 @@ class TestShardedRenderer:
 
 
 class TestShardedDynChain:
-    """Round 5: the mesh step is the dynamic-k chain
+    """The mesh step is the dynamic-k chain
     (parallel.sharded_frame_step_dyn) — render_frames on a device mesh is
     ONE dispatch, equal to per-frame stepping."""
 

@@ -120,116 +120,9 @@ class TestTextureSampling:
         assert (uv0 >= -1e-3).all() and (uv0 <= 1 + 1e-3).all()
 
 
-class TestTextureThroughClusterTracer:
-    def test_pallas_uv_matches_brute(self, monkeypatch):
-        # The Pallas cluster tracer's resolved uv must match the brute-force
-        # intersector's on the same rays (interpreter mode).
-        import jax.experimental.pallas as pl
-
-        import spt_tpu.ops.pallas_trace as pt
-        from spt_tpu.ops import intersect as isect
-        from spt_tpu.ops.bvh import build_mesh_accel
-        from spt_tpu.ops.vec3 import Vec3
-
-        orig = pl.pallas_call
-
-        def patched(*a, **kw):
-            kw["interpret"] = True
-            return orig(*a, **kw)
-
-        monkeypatch.setattr(pt.pl, "pallas_call", patched)
-
-        sd = _quad_scene(_checker())
-        scene = flatten_scene(sd)
-        uv6 = np.asarray(scene.tri_uv)
-        accel = build_mesh_accel(np.asarray(scene.tri_v0),
-                                 np.asarray(scene.tri_e1),
-                                 np.asarray(scene.tri_e2),
-                                 np.asarray(scene.tri_mat),
-                                 cluster_size=8, uv=uv6)
-        scene = scene._replace(accel=accel)
-
-        rng = np.random.default_rng(5)
-        n = 1024
-        o = Vec3(jnp.asarray(rng.uniform(-0.9, 0.9, n).astype(np.float32)),
-                 jnp.asarray(rng.uniform(-0.9, 0.9, n).astype(np.float32)),
-                 jnp.asarray(np.full(n, 2.0, np.float32)))
-        d = Vec3(jnp.zeros(n), jnp.zeros(n), jnp.full((n,), -1.0))
-
-        got = pt.closest_hit(accel, scene, o, d, tmin=1e-3)
-        want = isect._intersect_unrolled(scene, o, d, 1e-3, jnp.inf)
-        hits = np.asarray(want.hit_mask)
-        assert hits.all()
-        np.testing.assert_allclose(np.asarray(got.uvx)[hits],
-                                   np.asarray(want.uvx)[hits],
-                                   rtol=1e-5, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(got.uvy)[hits],
-                                   np.asarray(want.uvy)[hits],
-                                   rtol=1e-5, atol=1e-5)
-
-
-class TestTexturedFusedFrame:
-    def test_fused_textured_matches_staged(self, monkeypatch):
-        # Textured accel scene through the fused kernels (in-kernel
-        # dynamic_gather sampler) == the staged XLA pipeline (gather
-        # sampler), interpreter mode.
-        import jax.experimental.pallas as pl
-        import jax.numpy as jnp
-
-        import spt_tpu.ops.pallas_bounce as pb
-        import spt_tpu.ops.pallas_trace as pt
-        from spt_tpu.integrators import transport, wavefront as wf
-        from spt_tpu.ops.bvh import build_mesh_accel
-        from spt_tpu.camera import default_camera
-
-        orig = pl.pallas_call
-
-        def patched(*a, **kw):
-            kw["interpret"] = True
-            return orig(*a, **kw)
-
-        monkeypatch.setattr(pb.pl, "pallas_call", patched)
-        monkeypatch.setattr(pt.pl, "pallas_call", patched)
-
-        sd = _quad_scene(_checker())
-        scene = flatten_scene(sd)
-        accel = build_mesh_accel(np.asarray(scene.tri_v0),
-                                 np.asarray(scene.tri_e1),
-                                 np.asarray(scene.tri_e2),
-                                 np.asarray(scene.tri_mat),
-                                 cluster_size=8,
-                                 uv=np.asarray(scene.tri_uv))
-        scene = scene._replace(accel=accel)
-        monkeypatch.setattr(pb, "MAX_PALLAS_PRIMS", 1)
-        assert pb._accel_mode(scene)
-
-        cfg = RenderConfig(width=32, height=32, spp=1, max_depth=2)
-        lm = LightManager()
-        lm.add_directional_light((0.2, -0.4, -1.0), (1.0, 1.0, 1.0), 2.0)
-        lights = lm.device()
-        env = make_procedural_environment()
-        cam = Camera(position=(0, 0, 2.5), target=(0, 0, 0), fov_degrees=60.0,
-                     aspect_ratio=1.0).rays()
-
-        assert pb.supports(scene, lights, cfg.width * cfg.height, pad_ok=True)
-        ps = transport.gen_primary(cfg, cam, 0)
-        got, sg = wf._wavefront_masked(
-            cfg, scene, env, lights, ps, jnp.zeros((3,), jnp.int32),
-            fused=True)
-        ps2 = transport.gen_primary(cfg, cam, 0)
-        want, sw = wf._wavefront_masked(
-            cfg, scene, env, lights, ps2, jnp.zeros((3,), jnp.int32),
-            fused=False)
-        np.testing.assert_allclose(np.asarray(want), np.asarray(got),
-                                   rtol=1e-4, atol=1e-5)
-        # and the texture is actually visible: image has quadrant structure
-        img = np.asarray(got).reshape(32, 32, 3)
-        assert not np.allclose(img[10, 10], img[10, 22], atol=1e-3)
-
-
 class TestPackedTextureTable:
     """The packed 10/10/10 + 16/16 table, bilinear taps, and the
-    metallicRoughness channel path (VERDICT r2 missing #2 fixes)."""
+    metallicRoughness channel path."""
 
     def test_color_pack_roundtrip(self):
         from spt_tpu.materials import _pack_color, unpack_color
@@ -313,9 +206,8 @@ class TestPackedTextureTable:
 
 
 class TestBudgetedResolution:
-    """Per-scene texture resolution chosen by VMEM budget (VERDICT r3
-    weak #4 fix): few textures get 256^2, crowds degrade to 64^2 instead
-    of dropping the whole scene off the fused path."""
+    """Per-scene texture resolution chosen by a byte budget: few textures
+    get 256^2, crowds degrade to 64^2."""
 
     def test_choose_res_budget(self):
         from spt_tpu.materials import choose_tex_res
@@ -383,72 +275,3 @@ class TestBudgetedResolution:
                 (np.asarray(rgb.x) - truth) ** 2)))
         assert rmse[256] < rmse[128] < rmse[64]
         assert rmse[256] < 0.5 * rmse[64]
-
-    def test_six_texture_scene_stays_fused(self, monkeypatch):
-        """A 6-texture glTF-shaped scene keeps the fused kernels (the old
-        MAX_PALLAS_TEXTURES=4 count gate dropped it to the staged XLA
-        pipeline); fused output matches staged."""
-        import jax.experimental.pallas as pl
-
-        import spt_tpu.ops.pallas_bounce as pb
-        import spt_tpu.ops.pallas_trace as pt
-        from spt_tpu.integrators import transport, wavefront as wf
-        from spt_tpu.ops.bvh import build_mesh_accel
-
-        orig = pl.pallas_call
-
-        def patched(*a, **kw):
-            kw["interpret"] = True
-            return orig(*a, **kw)
-
-        monkeypatch.setattr(pb.pl, "pallas_call", patched)
-        monkeypatch.setattr(pt.pl, "pallas_call", patched)
-
-        rng = np.random.default_rng(3)
-        sd = SceneDesc()
-        for i in range(6):
-            tex = rng.uniform(0, 1, (64, 64, 3)).astype(np.float32)
-            mid = sd.add_material(Material(base_color=[1.0, 1.0, 1.0],
-                                           roughness=1.0, ior=1.0,
-                                           base_color_texture=tex))
-            x0 = -3.0 + i
-            mesh = MeshData(
-                positions=[[x0, -1, 0], [x0 + 1, -1, 0], [x0 + 1, 1, 0],
-                           [x0, 1, 0]],
-                indices=[[0, 1, 2], [0, 2, 3]],
-                normals=[[0, 0, 1]] * 4,
-                texcoords=[[0, 1], [1, 1], [1, 0], [0, 0]],
-                material_id=mid,
-            )
-            sd.add_instance(sd.add_mesh(mesh))
-        scene = flatten_scene(sd)
-        assert scene.textures.shape[0] == 6
-        accel = build_mesh_accel(np.asarray(scene.tri_v0),
-                                 np.asarray(scene.tri_e1),
-                                 np.asarray(scene.tri_e2),
-                                 np.asarray(scene.tri_mat),
-                                 cluster_size=8,
-                                 uv=np.asarray(scene.tri_uv))
-        scene = scene._replace(accel=accel)
-        monkeypatch.setattr(pb, "MAX_PALLAS_PRIMS", 1)
-        assert pb._accel_mode(scene)
-
-        cfg = RenderConfig(width=32, height=32, spp=1, max_depth=2)
-        lm = LightManager()
-        lm.add_directional_light((0.2, -0.4, -1.0), (1.0, 1.0, 1.0), 2.0)
-        lights = lm.device()
-        assert pb.explain_decline(scene, lights, cfg.width * cfg.height,
-                                  pad_ok=True) is None
-        env = make_procedural_environment()
-        cam = Camera(position=(0, 0, 6.0), target=(0, 0, 0),
-                     fov_degrees=60.0, aspect_ratio=1.0).rays()
-        ps = transport.gen_primary(cfg, cam, 0)
-        got, _ = wf._wavefront_masked(
-            cfg, scene, env, lights, ps, jnp.zeros((3,), jnp.int32),
-            fused=True)
-        ps2 = transport.gen_primary(cfg, cam, 0)
-        want, _ = wf._wavefront_masked(
-            cfg, scene, env, lights, ps2, jnp.zeros((3,), jnp.int32),
-            fused=False)
-        np.testing.assert_allclose(np.asarray(want), np.asarray(got),
-                                   rtol=1e-4, atol=1e-5)

@@ -155,9 +155,8 @@ class TestPointLight:
 
 class TestCompactedWavefront:
     def test_compacted_equals_masked(self, setup):
-        # Packing only changes which SIMD slot a path occupies; identical
-        # math, but a different XLA program, so float tolerance (exact on
-        # TPU, small fma drift on the CPU test backend).
+        # Packing only changes which lane a path occupies; identical math,
+        # but a different XLA program, so float tolerance (fma drift).
         scene, env, lights, cam = setup
         cfg = CFG.replace(width=128, height=80)  # above the compaction floor
         a, sa = render_wavefront(cfg, scene, env, lights, cam.rays(), 0, compact=False)
@@ -186,67 +185,6 @@ class TestCompactedWavefront:
         np.testing.assert_array_equal(
             np.asarray(sa.rays_per_bounce), np.asarray(sb.rays_per_bounce)
         )
-
-
-class TestSwizzle:
-    def test_swizzle_roundtrip(self, monkeypatch):
-        # Force the TPU code path on CPU: the mapping is pure index math.
-        import jax
-        from spt_tpu.integrators import wavefront as wf
-
-        monkeypatch.setattr(
-            wf, "_pallas_bounce_ok", lambda *a, **k: True, raising=True
-        )
-
-        class FakeDev:
-            platform = "tpu"
-
-        monkeypatch.setattr(jax, "devices", lambda: [FakeDev()])
-        from spt_tpu.ops import pallas_bounce
-
-        cfg = RenderConfig(width=256, height=128)
-        n = cfg.num_pixels
-        pixel, unswizzle = wf._swizzle(cfg, cfg.height, n)
-        if pixel is None:
-            pytest.skip("shape does not tile")
-        pix = np.asarray(pixel)
-        # bijection over all pixels
-        assert len(np.unique(pix)) == n
-        # unswizzle restores pixel-major order: encode the pixel id into
-        # the radiance and check image[y, x] == y*W + x.
-        rad = jnp.asarray(pix.astype(np.float32))[:, None] * jnp.ones((1, 3))
-        img = np.asarray(unswizzle(rad))
-        want = np.arange(n, dtype=np.float32).reshape(cfg.height, cfg.width)
-        np.testing.assert_array_equal(img[..., 0], want)
-        # each Pallas tile covers a compact rect: lanes of tile 0 span
-        # at most (tile_rows x 128) pixels
-        th = pallas_bounce._tile_rows(n // 128)
-        tile0 = pix[: th * 128]
-        ys, xs = tile0 // cfg.width, tile0 % cfg.width
-        assert ys.max() - ys.min() + 1 == th
-        assert xs.max() - xs.min() + 1 == 128
-
-    def test_swizzled_transport_equals_row_major(self, setup):
-        # End-to-end through gen_primary + the masked depth loop: RNG is
-        # seeded by PIXEL, so any lane order renders the identical image.
-        from spt_tpu.integrators import transport, wavefront as wf
-
-        scene, env, lights, cam = setup
-        cfg = RenderConfig(width=128, height=128, spp=1, max_depth=3)
-        cam = default_camera(cfg.width, cfg.height)
-        rays = cam.rays()
-        n = cfg.num_pixels
-        pixel, unswizzle = wf._swizzle(cfg, cfg.height, n)
-        assert pixel is not None
-        rays0 = jnp.zeros((cfg.max_depth,), jnp.int32)
-        a, _ = wf._wavefront_masked(
-            cfg, scene, env, lights,
-            transport.gen_primary(cfg, rays, 0), rays0)
-        b, _ = wf._wavefront_masked(
-            cfg, scene, env, lights,
-            transport.gen_primary(cfg, rays, 0, pixel=pixel), rays0,
-            unswizzle=unswizzle)
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 class TestRegeneration:
